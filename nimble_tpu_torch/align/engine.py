@@ -1,0 +1,494 @@
+"""The group-probe align step and its engine, in torch.
+
+Ports the narrow group path of nimble_tpu/align/engine.py: per mate, the
+window stage at k+g-1 (`kernels.kmer_keys`), one group-table row gather per
+probe position (`group_probe`), window masks and coverage scores for both
+orientations, orientation select and the AND intersection, then mate
+combination, score filters and the packed output format. Every function is
+held bit for bit against its reference counterpart (tests/test_torch_*.py).
+
+Exactness rules that torch imposes (the reference computes in uint32 and
+int32 under XLA):
+  * `>>` on an int32 tensor is arithmetic, so every right shift of a packed
+    word is masked to the field it extracts;
+  * `sum` over int32 returns int64: slot-select sums are cast back to int32
+    (at most one term is nonzero, so the cast is exact);
+  * indices are int64 (`.long()`);
+  * the `score_percent * len` compare is float32 on both sides.
+
+What the reference keeps for its TPU relay and this port leaves out: the
+scanned multi-chunk dispatch, `_to_host`, the compact/banded/idlist wire
+codecs and their overflow rerun, the emit cap, and the CPU chunk cap keyed on
+the JAX backend. The full `pack_outputs` format carries every result.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Optional
+
+import numpy as np
+import torch
+
+from nimble_tpu.config import Config
+from nimble_tpu.index.builder import BUCKET_SLOTS, KmerIndex
+from nimble_tpu_torch.align.kernels import N_CODE, kmer_keys
+from nimble_tpu_torch.align.tables import GROUP_MAX_WORDS, device_tables, group_words
+
+
+@dataclass(frozen=True)
+class AlignParams:
+    """Static alignment parameters derived from Config (engine.py:48)."""
+
+    k: int
+    n_buckets: int
+    score_threshold: int
+    score_filter: int
+    score_percent: float
+    intersect_level: int
+    require_valid_pair: bool
+    strand_filter: str  # "unstranded" | "fiveprime" | "threeprime"
+    stride: int = 1
+    # windows per group-probe row (0 = no group table; set by AlignEngine)
+    group_g: int = 0
+
+    @classmethod
+    def from_config(cls, config: Config, index: KmerIndex, strand_filter: str = "unstranded"):
+        return cls(
+            k=index.k,
+            n_buckets=index.n_buckets,
+            score_threshold=int(config.score_threshold),
+            score_filter=int(config.score_filter),
+            score_percent=float(config.score_percent),
+            intersect_level=int(config.intersect_level),
+            require_valid_pair=bool(config.require_valid_pair),
+            strand_filter=strand_filter,
+            stride=int(getattr(config, "kmer_stride", 1)),
+        )
+
+
+# auto chunk sizing (engine.py:135-175, group branch): budget the dominant
+# per-read intermediates against ~1 GB of device transients, rounded to a
+# power of two
+AUTO_CHUNK_BUDGET = 1 << 30
+AUTO_CHUNK_MIN = 1 << 10
+AUTO_CHUNK_MAX = 1 << 17
+CPU_CHUNK_MAX = 1 << 13  # keeps host RAM sane when the device is the CPU
+
+# packed-output columns after the W bits words (engine.py:1146)
+PACKED_EXTRA = 3
+MAX_LEN_LIMIT = 16383  # keeps every score strictly inside a uint16 half
+
+
+def auto_chunk_size(index: KmerIndex, max_len: int, paired: bool,
+                    device: torch.device) -> int:
+    """Largest power-of-two chunk whose group-path working set fits
+    AUTO_CHUNK_BUDGET; on the CPU at most CPU_CHUNK_MAX."""
+    k = index.k
+    L = max(max_len, k)
+    P = L - k + 1
+    W = index.bitset_words
+    S = BUCKET_SLOTS
+    g = index.pair_g
+    PP = max(L - (k + g - 1) + 1, 1)
+    Q = (PP + g - 1) // g + 1
+    per_read = Q * S * (2 + 2 * W + 1) + 4 * Q * W + 10 * PP + 6 * P
+    bytes_per_read = per_read * 4 * (2 if paired else 1)
+    chunk = 1 << int(np.log2(max(AUTO_CHUNK_BUDGET // max(bytes_per_read, 1), 1)))
+    if device.type == "cpu":
+        chunk = min(chunk, CPU_CHUNK_MAX)
+    return int(np.clip(chunk, AUTO_CHUNK_MIN, AUTO_CHUNK_MAX))
+
+
+def pack_outputs(out: dict) -> torch.Tensor:
+    """align_step outputs -> ONE flat int32 tensor, row-major (B, W+3):
+    bits | score|r1_fwd<<16 | r1_rev|r2_fwd<<16 | r2_rev|pass_<<16."""
+    s = {k: out[k].to(torch.int32) for k in ("score", "r1_fwd", "r1_rev", "r2_fwd", "r2_rev")}
+    c0 = s["score"] | (s["r1_fwd"] << 16)
+    c1 = s["r1_rev"] | (s["r2_fwd"] << 16)
+    c2 = s["r2_rev"] | (out["pass_"].to(torch.int32) << 16)
+    cols = [out["bits"].to(torch.int32), c0[:, None], c1[:, None], c2[:, None]]
+    return torch.cat(cols, dim=1).reshape(-1)
+
+
+def unpack_outputs(flat: np.ndarray, W: int, valid: int) -> dict:
+    """Host-side inverse of pack_outputs, sliced to the valid row count."""
+    arr = flat.reshape(-1, W + PACKED_EXTRA)[:valid]
+    lo = lambda c: arr[:, W + c] & 0xFFFF
+    hi = lambda c: (arr[:, W + c] >> 16) & 0xFFFF
+    return {
+        "bits": arr[:, :W],
+        "score": lo(0),
+        "r1_fwd": hi(0),
+        "r1_rev": lo(1),
+        "r2_fwd": hi(1),
+        "r2_rev": lo(2),
+        "pass_": (hi(2) & 1).astype(bool),
+    }
+
+
+def unpack_reads(words: torch.Tensor, L: int, nflags: Optional[torch.Tensor] = None):
+    """Inverse of io.packing.pack_codes: (B, ceil(L/16)) int32 packed words ->
+    (B, L) int8 base codes, with N_CODE restored at flagged positions."""
+    B, Lw = words.shape
+    dev = words.device
+    rep = words[:, :, None].expand(B, Lw, 16).reshape(B, Lw * 16)[:, :L]
+    sh = torch.from_numpy((2 * (np.arange(L) % 16)).astype(np.int32)).to(dev)
+    codes = ((rep >> sh[None, :]) & 3).to(torch.int8)
+    if nflags is not None:
+        Lf = nflags.shape[1]
+        nrep = nflags[:, :, None].expand(B, Lf, 32).reshape(B, Lf * 32)[:, :L]
+        nsh = torch.from_numpy((np.arange(L) % 32).astype(np.int32)).to(dev)
+        isn = ((nrep >> nsh[None, :]) & 1) != 0
+        codes = torch.where(isn, torch.tensor(N_CODE, dtype=torch.int8, device=dev), codes)
+    return codes
+
+
+def group_probe(hi_i, lo_i, h1, fwd_c, valid, tables, W: int, g: int):
+    """engine.py:group_probe — ONE group-table row gather per probe position
+    answers g read windows in both orientations. Returns (and_f, mask_f,
+    and_r, mask_r): the pre-ANDed (B, Q, W) int32 bitsets and (B, Q) g-bit
+    window-presence masks of the read's forward / reverse orientation, in
+    forward coordinates."""
+    B, Q = hi_i.shape
+    bucket = tables["group_bucket"]
+    S = bucket.shape[1] // (2 + 2 * W + 1)
+    row = bucket[h1.long()]  # (B, Q, S*entry)
+    # empty slots hold the impossible key hi = -1: no occupancy check needed
+    match = (row[..., 0:S] == hi_i[..., None]) & (row[..., S : 2 * S] == lo_i[..., None])
+    sel = match[:, :, None, :]  # (B, Q, 1, S)
+    vs_and = row[..., 2 * S : 2 * S + W * S].reshape(B, Q, W, S)
+    vd_and = row[..., 2 * S + W * S : 2 * S + 2 * W * S].reshape(B, Q, W, S)
+    # at most one slot matches (keys are unique): sum-select it
+    zero = torch.zeros((), dtype=torch.int32, device=row.device)
+    vs_and = torch.where(sel, vs_and, zero).sum(dim=3).to(torch.int32)
+    vd_and = torch.where(sel, vd_and, zero).sum(dim=3).to(torch.int32)
+    mword = torch.where(match, row[..., 2 * S + 2 * W * S :], zero).sum(dim=2).to(torch.int32)
+    for s in range(tables["group_stash_hi"].shape[0]):
+        m = (tables["group_stash_hi"][s] == hi_i) & (tables["group_stash_lo"][s] == lo_i)
+        vs_and = vs_and | torch.where(m[..., None], tables["group_stash_vs_and"][s], zero)
+        vd_and = vd_and | torch.where(m[..., None], tables["group_stash_vd_and"][s], zero)
+        mword = mword | torch.where(m, tables["group_stash_mask"][s], zero)
+
+    gmask = (1 << g) - 1
+    fc = fwd_c[..., None]
+    and_f = torch.where(fc, vs_and, vd_and)
+    and_r = torch.where(fc, vd_and, vs_and)
+    # `>>` is arithmetic on int32: the & gmask keeps only the g-bit field
+    mask_f = torch.where(fwd_c, mword, mword >> 8) & gmask
+    mask_r = torch.where(fwd_c, mword >> 24, mword >> 16) & gmask
+    mask_f = torch.where(valid, mask_f, zero)
+    mask_r = torch.where(valid, mask_r, zero)
+    return and_f, mask_f, and_r, mask_r
+
+
+def group_win_matched(mask, Q: int, g: int, P: int, jstar):
+    """engine.py:group_win_matched — (B, Q+1) group masks -> per-window
+    matched bools (B, P): unpack the grid masks (probe q answers windows
+    g*q .. g*q+g-1), then OR in the tail probe's windows at jstar + i."""
+    B = mask.shape[0]
+    pos = torch.arange(P, device=mask.device)[None, :]
+    planes = [((mask[:, :Q] >> i) & 1).bool() for i in range(g)]
+    m = torch.stack(planes, dim=2).reshape(B, Q * g)
+    if Q * g < P:
+        m = torch.cat([m, m.new_zeros((B, P - Q * g))], dim=1)
+    tmask = mask[:, Q]
+    for i in range(g):
+        tm = ((tmask >> i) & 1).bool()
+        m = m | ((pos == (jstar + i)[:, None]) & tm[:, None])
+    return m
+
+
+def coverage_score2(matched_f, matched_r, lens, k: int, L: int, stride: int = 1):
+    """engine.py:coverage_score2 — both orientations' coverage scores (bases
+    covered by >= 1 matched window) in one int32 cumsum: the forward window
+    count rides the low uint16 half and the reverse count the high half."""
+    B, P = matched_f.shape
+    dev = matched_f.device
+    packed = matched_f.to(torch.int32) + (matched_r.to(torch.int32) << 16)
+    mc = torch.cat(
+        [torch.zeros((B, 1), dtype=torch.int32, device=dev),
+         torch.cumsum(packed, dim=1, dtype=torch.int32)],
+        dim=1,
+    )
+    b = np.arange(L)
+    j_high = b // stride
+    j_low = -((-(b - k + 1)) // stride)
+    hi_idx = torch.from_numpy(np.minimum(j_high + 1, P)).to(dev)
+    lo_idx = torch.from_numpy(np.clip(j_low, 0, P)).to(dev)
+    win = mc[:, hi_idx] - mc[:, lo_idx]  # (B, L), two uint16 fields
+    in_read = torch.arange(L, device=dev)[None, :] < lens[:, None]
+    cov_f = ((win & 0xFFFF) > 0) & in_read
+    cov_r = (((win >> 16) & 0xFFFF) > 0) & in_read
+    return cov_f.sum(dim=1).to(torch.int32), cov_r.sum(dim=1).to(torch.int32)
+
+
+def and_reduce_bits(rows: torch.Tensor, matched: torch.Tensor) -> torch.Tensor:
+    """engine.py:and_reduce_bits — AND (B, P, W) bitset rows over matched
+    positions -> (B, W). Misses contribute all ones; reads with no matched
+    position end all-zero."""
+    rows = torch.where(matched[..., None], rows, torch.full((), -1, dtype=rows.dtype, device=rows.device))
+    n = rows.shape[1]
+    while n > 1:
+        half = n // 2
+        lower = rows[:, :half] & rows[:, half : 2 * half]
+        if n % 2:
+            lower[:, 0] &= rows[:, -1]
+        rows = lower
+        n = half
+    acc = rows[:, 0]
+    return torch.where(matched.any(dim=1)[:, None], acc, torch.zeros_like(acc))
+
+
+def _select_orientation(bits_f_w, bits_r_w, matched_f, matched_r, score_f, score_r, p):
+    """engine.py:_select_orientation -> (bits, score, fwd_score, rev_score)."""
+    if p.strand_filter == "fiveprime":
+        use_fwd = torch.ones_like(score_f, dtype=torch.bool)
+    elif p.strand_filter == "threeprime":
+        use_fwd = torch.zeros_like(score_f, dtype=torch.bool)
+    else:  # unstranded: higher-scoring orientation, ties -> forward
+        use_fwd = score_f >= score_r
+    sel_rows = torch.where(use_fwd[:, None, None], bits_f_w, bits_r_w)
+    matched_sel = torch.where(use_fwd[:, None], matched_f, matched_r)
+    bits = and_reduce_bits(sel_rows, matched_sel)
+    score = torch.where(use_fwd, score_f, score_r)
+    return bits, score, score_f, score_r
+
+
+def _score_mate_group(codes, lens, tables, p: AlignParams):
+    """engine.py:_score_mate_group — probe canonical (k+g-1)-mers on a
+    stride-g grid plus one per-read tail probe at j* = len-(k+g-1), so every
+    window of a clean read is answered. Reads shorter than k+g-1 come back
+    unmapped (the pipeline repairs them on the host)."""
+    g = p.group_g
+    kg = p.k + g - 1
+    B, L = codes.shape
+    P = L - p.k + 1  # k-windows
+    PP = L - kg + 1  # group positions
+    nb = tables["group_bucket"].shape[0]
+    hi_i, lo_i, h1, _h2, fwd_c, _palin, valid = kmer_keys(codes, lens, kg, nb)
+
+    # grid probes at 0, g, 2g, ... plus ONE tail probe per read at the
+    # data-dependent position j*, appended as an extra column and extracted
+    # with a one-hot masked sum
+    jstar = torch.clamp(lens - kg, 0, PP - 1)
+    onehot = torch.arange(PP, device=codes.device)[None, :] == jstar[:, None]
+    zero = torch.zeros((), dtype=torch.int32, device=codes.device)
+    cat = []
+    for a in (hi_i, lo_i, h1, fwd_c, valid):
+        t = torch.where(onehot, a.to(torch.int32), zero).sum(dim=1, keepdim=True)
+        cat.append(torch.cat([a[:, ::g], t.to(a.dtype)], dim=1))
+    W = group_words(tables)
+    and_f, mask_f, and_r, mask_r = group_probe(*cat, tables, W, g)
+    Q = cat[0].shape[1] - 1
+
+    score_f, score_r = coverage_score2(
+        group_win_matched(mask_f, Q, g, P, jstar),
+        group_win_matched(mask_r, Q, g, P, jstar),
+        lens, p.k, L, 1,
+    )
+    # the AND is order-independent and each probe's windows are pre-ANDed:
+    # the (B, Q+1, W) probe planes feed the intersection directly
+    return _select_orientation(and_f, and_r, mask_f != 0, mask_r != 0, score_f, score_r, p)
+
+
+def align_step(tables, p: AlignParams, r1_codes, r1_lens, r2_codes=None, r2_lens=None):
+    """engine.py:align_step on the group path. Returns dict: bits (B, W)
+    int32, score, r1_fwd/r1_rev/r2_fwd/r2_rev orientation scores (B,) int32,
+    pass_ (B,) bool."""
+    if "group_bucket" not in tables or p.group_g < 2:
+        raise NotImplementedError(
+            "only the group-probe path is ported; the mono and wide paths "
+            "are ROADMAP Queue 1 items 9-10"
+        )
+    m1 = _score_mate_group(r1_codes, r1_lens, tables, p)
+    m2 = _score_mate_group(r2_codes, r2_lens, tables, p) if r2_codes is not None else None
+    return combine_mates(p, r1_lens, m1, r2_lens, m2)
+
+
+def _mate_valid(p: AlignParams, bits, score, lens):
+    # float32 on both sides, exactly as the reference's jnp compare
+    pct = torch.tensor(p.score_percent, dtype=torch.float32, device=score.device)
+    return (
+        (score >= p.score_threshold)
+        & (score.to(torch.float32) >= pct * lens.to(torch.float32))
+        & (bits != 0).any(dim=1)
+    )
+
+
+def combine_mates(p: AlignParams, r1_lens, m1, r2_lens=None, m2=None):
+    """engine.py:combine_mates — mate hit-set combination + score filters."""
+    bits1, score1, f1, r1 = m1
+    valid1 = _mate_valid(p, bits1, score1, r1_lens)
+    zero = torch.zeros((), dtype=torch.int32, device=score1.device)
+    if m2 is not None:
+        bits2, score2, f2, r2 = m2
+        valid2 = _mate_valid(p, bits2, score2, r2_lens)
+        b1 = torch.where(valid1[:, None], bits1, zero)
+        b2 = torch.where(valid2[:, None], bits2, zero)
+        union = b1 | b2
+        inter = b1 & b2
+        both = valid1 & valid2
+        single = torch.where(valid1[:, None], b1, b2)
+        # 0: intersect, empty -> unmapped pair; 1: intersect, falling back
+        # to the union when empty; 2: both mates must hit and intersect
+        if p.intersect_level == 1:
+            inter_nonempty = (inter != 0).any(dim=1)
+            paired = torch.where(inter_nonempty[:, None], inter, union)
+            bits = torch.where(both[:, None], paired, single)
+        elif p.intersect_level == 2:
+            bits = torch.where(both[:, None], inter, zero)
+        else:
+            bits = torch.where(both[:, None], inter, single)
+        score = torch.where(valid1, score1, zero) + torch.where(valid2, score2, zero)
+        any_valid = valid1 | valid2
+        if p.require_valid_pair:
+            any_valid = both
+            bits = torch.where(both[:, None], bits, zero)
+    else:
+        bits = torch.where(valid1[:, None], bits1, zero)
+        score = torch.where(valid1, score1, zero)
+        any_valid = valid1
+        f2 = r2 = torch.zeros_like(score1)
+
+    pass_ = any_valid & (score >= p.score_filter) & (bits != 0).any(dim=1)
+    return {
+        "bits": bits,
+        "score": score,
+        "r1_fwd": f1,
+        "r1_rev": r1,
+        "r2_fwd": f2,
+        "r2_rev": r2,
+        "pass_": pass_,
+    }
+
+
+class AlignEngine:
+    """Single-device alignment engine over fixed-shape chunks, group path
+    only (engine.py:2698). Raises on what the port has not taken over yet:
+    stride > 1, W > 8, or an index without group entries (the mono, wide
+    and stacked paths; ROADMAP Queue 1)."""
+
+    def __init__(
+        self,
+        index: KmerIndex,
+        config: Config,
+        device: torch.device,
+        strand_filter: str = "unstranded",
+        chunk_size: Optional[int] = 2048,
+        max_len: int = 256,
+        paired: bool = False,
+        chunk_cap: Optional[int] = None,
+    ):
+        self.index = index
+        self.config = config
+        self.device = torch.device(device)
+        self.params = AlignParams.from_config(config, index, strand_filter)
+        self.max_len = max(max_len, index.k)
+        self.paired = paired
+        W = index.bitset_words
+        if self.params.stride != 1:
+            raise NotImplementedError(
+                f"kmer_stride {self.params.stride} needs the mono path (ROADMAP Queue 1 item 9)")
+        if W > GROUP_MAX_WORDS:
+            raise NotImplementedError(
+                f"{W}-word feature bitsets need the wide paths (ROADMAP Queue 1 item 10)")
+        if not index.has_pairs:
+            raise NotImplementedError(
+                "index has no group entries (--probe mono or num_mismatches > 0); "
+                "the mono path is ROADMAP Queue 1 item 9")
+        if self.max_len < index.k + index.pair_g - 1:
+            raise NotImplementedError(
+                f"max_len {self.max_len} < k+g-1 = {index.k + index.pair_g - 1}: "
+                "reads this short need the mono path (ROADMAP Queue 1 item 9)")
+        if self.max_len > MAX_LEN_LIMIT:
+            raise ValueError(f"max_len {self.max_len} > {MAX_LEN_LIMIT} (packed uint16 scores)")
+        tables = device_tables(index, self.device)
+        if tables is None:
+            raise NotImplementedError(
+                "group-table placement is infeasible for this index; the mono "
+                "path is ROADMAP Queue 1 item 9")
+        self.tables = tables
+        self.params = replace(self.params, group_g=index.pair_g)
+
+        if chunk_size is None:
+            chunk_size = auto_chunk_size(index, self.max_len, paired, self.device)
+            if chunk_cap is not None and chunk_cap < chunk_size:
+                # a chunk larger than the read batches would pad every batch
+                chunk_size = max(1 << int(np.log2(max(chunk_cap, 1))), 1)
+        self.chunk_size = chunk_size
+
+    def _pad(self, arr, n, fill):
+        if arr.shape[0] == n:
+            return arr
+        pad_width = [(0, n - arr.shape[0])] + [(0, 0)] * (arr.ndim - 1)
+        return np.pad(arr, pad_width, constant_values=fill)
+
+    def _to_dev(self, a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device).to(dtype)
+
+    def _step(self, *args) -> torch.Tensor:
+        return pack_outputs(align_step(self.tables, self.params, *args))
+
+    def align_batch_async(self, r1_codes: np.ndarray, r1_lens: np.ndarray,
+                          r2_codes: Optional[np.ndarray] = None,
+                          r2_lens: Optional[np.ndarray] = None):
+        """Dispatch a host batch of int8 codes chunk by chunk (no wait).
+        Returns [(packed device tensor, valid rows)] for collect_async."""
+        n = r1_codes.shape[0]
+        C = self.chunk_size
+        pending = []
+        for start in range(0, n, C):
+            end = min(start + C, n)
+            args = [
+                self._to_dev(self._pad(r1_codes[start:end], C, N_CODE), torch.int8),
+                self._to_dev(self._pad(r1_lens[start:end], C, 0), torch.int32),
+            ]
+            if self.paired:
+                args += [
+                    self._to_dev(self._pad(r2_codes[start:end], C, N_CODE), torch.int8),
+                    self._to_dev(self._pad(r2_lens[start:end], C, 0), torch.int32),
+                ]
+            pending.append((self._step(*args), end - start))
+        return pending
+
+    def align_packed_async(self, pb: dict):
+        """Dispatch a packed-wire batch (io.packing.pack_batch dict) chunk by
+        chunk, with dense N flags. Same pending-list contract as
+        align_batch_async."""
+        n = pb["r1_words"].shape[0]
+        C = self.chunk_size
+        L = self.max_len
+        Lf = (L + 31) // 32
+        pending = []
+        for start in range(0, n, C):
+            end = min(start + C, n)
+            args = []
+            for mate in ("r1", "r2") if self.paired else ("r1",):
+                w = self._pad(pb[f"{mate}_words"][start:end], C, 0)
+                lens = self._pad(pb[f"{mate}_lens"][start:end], C, 0)
+                nidx = pb[f"{mate}_nidx"]
+                nrows = pb[f"{mate}_nrows"]
+                lo = int(np.searchsorted(nidx, start))
+                hi = int(np.searchsorted(nidx, end))
+                dense = np.zeros((C, Lf), dtype=np.int32)
+                dense[nidx[lo:hi] - start] = nrows[lo:hi]
+                codes = unpack_reads(self._to_dev(w, torch.int32), L, self._to_dev(dense, torch.int32))
+                args += [codes, self._to_dev(lens, torch.int32)]
+            pending.append((self._step(*args), end - start))
+        return pending
+
+    def collect_async(self, pending):
+        """Copy dispatched packed outputs to host numpy and unpack them."""
+        outs = []
+        W = group_words(self.tables)
+        for flat, valid in pending:
+            outs.append(unpack_outputs(flat.cpu().numpy(), W, valid))
+        if not outs:
+            return None
+        return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+
+    def align_batch(self, r1_codes: np.ndarray, r1_lens: np.ndarray,
+                    r2_codes: Optional[np.ndarray] = None,
+                    r2_lens: Optional[np.ndarray] = None):
+        """Align a host batch of any size; returns host numpy outputs."""
+        return self.collect_async(self.align_batch_async(r1_codes, r1_lens, r2_codes, r2_lens))
