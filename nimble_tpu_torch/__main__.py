@@ -57,8 +57,8 @@ def main(argv=None) -> int:
                               help="Not ported (ROADMAP Queue 1 item 13).")
     align_parser.add_argument(
         "--probe", type=str, default="group", choices=("group", "mono"),
-        help="k-mer probe path; only 'group' is ported ('mono' is ROADMAP "
-             "Queue 1 item 9).",
+        help="k-mer probe path: 'group' (default) probes one (k+g-1)-mer per "
+             "g windows; 'mono' probes every k-window (the per-k-mer contract).",
     )
     align_parser.add_argument(
         "--device", type=str, default="cuda", choices=DEVICES,
@@ -125,7 +125,7 @@ def main(argv=None) -> int:
         from nimble_tpu_torch.device import resolve_device
 
         try:
-            refuse_unported(mesh=args.mesh, resume=args.resume, probe=args.probe)
+            refuse_unported(mesh=args.mesh, resume=args.resume)
         except NotImplementedError as e:
             return _unported(str(e))
         return align_files(
@@ -138,6 +138,7 @@ def main(argv=None) -> int:
             max_len=args.max_read_length,
             trim=args.trim,
             num_cores=args.num_cores,
+            probe=args.probe,
         )
     if args.subcommand == "report":
         if args.distributed > 0:

@@ -1,11 +1,19 @@
-"""The group-probe align step and its engine, in torch.
+"""The narrow align steps and their engine, in torch.
 
-Ports the narrow group path of nimble_tpu/align/engine.py: per mate, the
-window stage at k+g-1 (`kernels.kmer_keys`), one group-table row gather per
-probe position (`group_probe`), window masks and coverage scores for both
-orientations, orientation select and the AND intersection, then mate
-combination, score filters and the packed output format. Every function is
-held bit for bit against its reference counterpart (tests/test_torch_*.py).
+Ports the W <= 16 paths of nimble_tpu/align/engine.py:
+  * group (`_score_mate_group`): per mate, the window stage at k+g-1
+    (`kernels.kmer_keys`), one group-table row gather per probe position
+    (`group_probe`), window masks and coverage scores for both orientations,
+    orientation select and the AND intersection;
+  * mono (`_score_mate_mono`): the window stage at k, the stride slice, the
+    fused mono-table probe (`kernels.mono_probe`), coverage and the same
+    orientation select and AND;
+  * two-choice inline (`_score_mate_inline`), the fallback when mono
+    placement is infeasible: the window stage at k and `lookup_inline_bits`
+    in plain torch (the reference has no kernel for it);
+then mate combination, score filters and the packed output format. Every
+function is held bit for bit against its reference counterpart
+(tests/test_torch_*.py).
 
 Exactness rules that torch imposes (the reference computes in uint32 and
 int32 under XLA):
@@ -30,9 +38,14 @@ import numpy as np
 import torch
 
 from nimble_tpu.config import Config
-from nimble_tpu.index.builder import BUCKET_SLOTS, KmerIndex
-from nimble_tpu_torch.align.kernels import N_CODE, kmer_keys
-from nimble_tpu_torch.align.tables import GROUP_MAX_WORDS, device_tables, group_words
+from nimble_tpu.index.builder import BUCKET_SLOTS, STASH_SIZE, KmerIndex
+from nimble_tpu_torch.align.kernels import N_CODE, kmer_keys, mono_probe
+from nimble_tpu_torch.align.tables import (
+    GROUP_MAX_WORDS,
+    INLINE_BITS_MAX_WORDS,
+    device_tables,
+    table_words,
+)
 
 
 @dataclass(frozen=True)
@@ -66,9 +79,9 @@ class AlignParams:
         )
 
 
-# auto chunk sizing (engine.py:135-175, group branch): budget the dominant
-# per-read intermediates against ~1 GB of device transients, rounded to a
-# power of two
+# auto chunk sizing (engine.py:135-177, group and inline branches): budget
+# the dominant per-read intermediates against ~1 GB of device transients,
+# rounded to a power of two
 AUTO_CHUNK_BUDGET = 1 << 30
 AUTO_CHUNK_MIN = 1 << 10
 AUTO_CHUNK_MAX = 1 << 17
@@ -80,18 +93,23 @@ MAX_LEN_LIMIT = 16383  # keeps every score strictly inside a uint16 half
 
 
 def auto_chunk_size(index: KmerIndex, max_len: int, paired: bool,
-                    device: torch.device) -> int:
-    """Largest power-of-two chunk whose group-path working set fits
-    AUTO_CHUNK_BUDGET; on the CPU at most CPU_CHUNK_MAX."""
+                    device: torch.device, group_ok: bool = True) -> int:
+    """Largest power-of-two chunk whose working set on the engine's path
+    (group when group_ok and the index has group entries at W <= 8, else
+    the W <= 16 mono/inline path) fits AUTO_CHUNK_BUDGET; on the CPU at most
+    CPU_CHUNK_MAX."""
     k = index.k
     L = max(max_len, k)
     P = L - k + 1
     W = index.bitset_words
     S = BUCKET_SLOTS
-    g = index.pair_g
-    PP = max(L - (k + g - 1) + 1, 1)
-    Q = (PP + g - 1) // g + 1
-    per_read = Q * S * (2 + 2 * W + 1) + 4 * Q * W + 10 * PP + 6 * P
+    if group_ok and index.has_pairs and W <= GROUP_MAX_WORDS:
+        g = index.pair_g
+        PP = max(L - (k + g - 1) + 1, 1)
+        Q = (PP + g - 1) // g + 1
+        per_read = Q * S * (2 + 2 * W + 1) + 4 * Q * W + 10 * PP + 6 * P
+    else:
+        per_read = P * S * (2 + 2 * W) + 2 * P * W + 10 * P
     bytes_per_read = per_read * 4 * (2 if paired else 1)
     chunk = 1 << int(np.log2(max(AUTO_CHUNK_BUDGET // max(bytes_per_read, 1), 1)))
     if device.type == "cpu":
@@ -277,7 +295,7 @@ def _score_mate_group(codes, lens, tables, p: AlignParams):
     for a in (hi_i, lo_i, h1, fwd_c, valid):
         t = torch.where(onehot, a.to(torch.int32), zero).sum(dim=1, keepdim=True)
         cat.append(torch.cat([a[:, ::g], t.to(a.dtype)], dim=1))
-    W = group_words(tables)
+    W = table_words(tables)
     and_f, mask_f, and_r, mask_r = group_probe(*cat, tables, W, g)
     Q = cat[0].shape[1] - 1
 
@@ -291,17 +309,98 @@ def _score_mate_group(codes, lens, tables, p: AlignParams):
     return _select_orientation(and_f, and_r, mask_f != 0, mask_r != 0, score_f, score_r, p)
 
 
+def lookup_inline_bits(hi_i, lo_i, h1, h2, fwd_c, palin, valid, tables, W: int):
+    """engine.py:lookup_inline_bits from precomputed canonical keys and both
+    bucket hashes: two-choice probe of the inline bucket (one row per hash
+    candidate carries keys and both orientations' bitsets) plus the index
+    stash. Returns (bits_f, bits_r), each (B, P, W) int32, all-zero = miss."""
+    B, P = hi_i.shape
+    S = BUCKET_SLOTS
+    zero = torch.zeros((), dtype=torch.int32, device=hi_i.device)
+    vs_bits = torch.zeros((B, P, W), dtype=torch.int32, device=hi_i.device)
+    vd_bits = torch.zeros_like(vs_bits)
+    for h in (h1, h2):
+        row = tables["bucket"][h.long()]  # (B, P, 4S + 2SW)
+        vsb = row[..., 4 * S : 4 * S + S * W].reshape(B, P, S, W)
+        vdb = row[..., 4 * S + S * W :].reshape(B, P, S, W)
+        occupied = ((vsb | vdb) != 0).any(dim=-1)  # (B, P, S)
+        match = (row[..., 0:S] == hi_i[..., None]) & (row[..., S : 2 * S] == lo_i[..., None]) & occupied
+        # at most one slot matches: sum-select it, exact in int64
+        sel = match[..., None]
+        vs_bits = vs_bits | torch.where(sel, vsb, zero).sum(dim=2).to(torch.int32)
+        vd_bits = vd_bits | torch.where(sel, vdb, zero).sum(dim=2).to(torch.int32)
+    for s in range(STASH_SIZE):
+        # empty stash rows carry all-zero bitsets: a spurious key match
+        # against one contributes nothing
+        m = ((tables["stash_hi"][s] == hi_i) & (tables["stash_lo"][s] == lo_i))[..., None]
+        vs_bits = vs_bits | torch.where(m, tables["stash_vs_bits"][s], zero)
+        vd_bits = vd_bits | torch.where(m, tables["stash_vd_bits"][s], zero)
+    fc = fwd_c[..., None]
+    bits_f = torch.where(fc, vs_bits, vd_bits)
+    bits_r = torch.where(palin[..., None], vs_bits, torch.where(fc, vd_bits, vs_bits))
+    v = valid[..., None]
+    return torch.where(v, bits_f, zero), torch.where(v, bits_r, zero)
+
+
+def _window_keys(codes, lens, n_buckets: int, p: AlignParams):
+    """The window stage at k, every p.stride-th window kept (contiguous)."""
+    planes = kmer_keys(codes, lens, p.k, n_buckets)
+    if p.stride > 1:
+        planes = tuple(a[:, :: p.stride].contiguous() for a in planes)
+    return planes
+
+
+def _score_bits(bits_f_w, bits_r_w, lens, L: int, p: AlignParams):
+    """Per-window bitsets of both orientations -> coverage scores and the
+    selected orientation's AND intersection (engine.py:2560-2567)."""
+    matched_f = (bits_f_w != 0).any(dim=-1)
+    matched_r = (bits_r_w != 0).any(dim=-1)
+    score_f, score_r = coverage_score2(matched_f, matched_r, lens, p.k, L, p.stride)
+    return _select_orientation(bits_f_w, bits_r_w, matched_f, matched_r, score_f, score_r, p)
+
+
+def _score_mate_mono(codes, lens, tables, p: AlignParams):
+    """engine.py:_score_mate, window-kernel mono branch: canonical k-mer
+    keys hashed into the mono table, one fused probe per kept window."""
+    bucket = tables["mono_bucket"]
+    hi_i, lo_i, h1, _h2, fwd_c, palin, valid = _window_keys(codes, lens, bucket.shape[0], p)
+    bits_f_w, bits_r_w = mono_probe(
+        bucket, h1, hi_i, lo_i, fwd_c, palin, valid, tables["mono_stash"], table_words(tables)
+    )
+    return _score_bits(bits_f_w, bits_r_w, lens, codes.shape[1], p)
+
+
+def _score_mate_inline(codes, lens, tables, p: AlignParams):
+    """engine.py:_score_mate, two-choice inline branch (mono placement was
+    infeasible): keys and both hashes at the index's n_buckets."""
+    hi_i, lo_i, h1, h2, fwd_c, palin, valid = _window_keys(codes, lens, p.n_buckets, p)
+    bits_f_w, bits_r_w = lookup_inline_bits(
+        hi_i, lo_i, h1, h2, fwd_c, palin, valid, tables, table_words(tables)
+    )
+    return _score_bits(bits_f_w, bits_r_w, lens, codes.shape[1], p)
+
+
+def _score_mate(codes, lens, tables, p: AlignParams):
+    """engine.py:_score_mate's dispatch for W <= 16: group when the params
+    carry g >= 2 and the tables a group bucket, else mono, else two-choice."""
+    if p.group_g >= 2 and "group_bucket" in tables:
+        return _score_mate_group(codes, lens, tables, p)
+    if "mono_bucket" in tables:
+        return _score_mate_mono(codes, lens, tables, p)
+    if "bucket" in tables:
+        return _score_mate_inline(codes, lens, tables, p)
+    raise NotImplementedError(
+        "only the narrow group, mono and two-choice paths are ported; the "
+        "wide paths are ROADMAP Queue 1 item 10"
+    )
+
+
 def align_step(tables, p: AlignParams, r1_codes, r1_lens, r2_codes=None, r2_lens=None):
-    """engine.py:align_step on the group path. Returns dict: bits (B, W)
+    """engine.py:align_step on the narrow paths. Returns dict: bits (B, W)
     int32, score, r1_fwd/r1_rev/r2_fwd/r2_rev orientation scores (B,) int32,
     pass_ (B,) bool."""
-    if "group_bucket" not in tables or p.group_g < 2:
-        raise NotImplementedError(
-            "only the group-probe path is ported; the mono and wide paths "
-            "are ROADMAP Queue 1 items 9-10"
-        )
-    m1 = _score_mate_group(r1_codes, r1_lens, tables, p)
-    m2 = _score_mate_group(r2_codes, r2_lens, tables, p) if r2_codes is not None else None
+    m1 = _score_mate(r1_codes, r1_lens, tables, p)
+    m2 = _score_mate(r2_codes, r2_lens, tables, p) if r2_codes is not None else None
     return combine_mates(p, r1_lens, m1, r2_lens, m2)
 
 
@@ -363,10 +462,10 @@ def combine_mates(p: AlignParams, r1_lens, m1, r2_lens=None, m2=None):
 
 
 class AlignEngine:
-    """Single-device alignment engine over fixed-shape chunks, group path
-    only (engine.py:2698). Raises on what the port has not taken over yet:
-    stride > 1, W > 8, or an index without group entries (the mono, wide
-    and stacked paths; ROADMAP Queue 1)."""
+    """Single-device alignment engine over fixed-shape chunks on the narrow
+    paths (engine.py:2698): group, mono or two-choice, chosen as the
+    reference chooses. Raises for W > 16 (the wide paths, ROADMAP Queue 1
+    item 10)."""
 
     def __init__(
         self,
@@ -377,6 +476,7 @@ class AlignEngine:
         chunk_size: Optional[int] = 2048,
         max_len: int = 256,
         paired: bool = False,
+        group_probe: Optional[bool] = None,
         chunk_cap: Optional[int] = None,
     ):
         self.index = index
@@ -386,32 +486,28 @@ class AlignEngine:
         self.max_len = max(max_len, index.k)
         self.paired = paired
         W = index.bitset_words
-        if self.params.stride != 1:
-            raise NotImplementedError(
-                f"kmer_stride {self.params.stride} needs the mono path (ROADMAP Queue 1 item 9)")
-        if W > GROUP_MAX_WORDS:
+        if W > INLINE_BITS_MAX_WORDS:
             raise NotImplementedError(
                 f"{W}-word feature bitsets need the wide paths (ROADMAP Queue 1 item 10)")
-        if not index.has_pairs:
-            raise NotImplementedError(
-                "index has no group entries (--probe mono or num_mismatches > 0); "
-                "the mono path is ROADMAP Queue 1 item 9")
-        if self.max_len < index.k + index.pair_g - 1:
-            raise NotImplementedError(
-                f"max_len {self.max_len} < k+g-1 = {index.k + index.pair_g - 1}: "
-                "reads this short need the mono path (ROADMAP Queue 1 item 9)")
         if self.max_len > MAX_LEN_LIMIT:
             raise ValueError(f"max_len {self.max_len} > {MAX_LEN_LIMIT} (packed uint16 scores)")
-        tables = device_tables(index, self.device)
-        if tables is None:
-            raise NotImplementedError(
-                "group-table placement is infeasible for this index; the mono "
-                "path is ROADMAP Queue 1 item 9")
-        self.tables = tables
-        self.params = replace(self.params, group_g=index.pair_g)
+        # group probe (engine.py:2740-2750): one (k+g-1)-mer gather answers g
+        # windows, when the index has group entries, W <= 8, reads are
+        # probed at stride 1 and are at least k+g-1 long; else mono
+        group_ok = (
+            index.has_pairs
+            and W <= GROUP_MAX_WORDS
+            and self.params.stride == 1
+            and self.max_len >= index.k + index.pair_g - 1
+        )
+        if group_probe is not None:
+            group_ok = group_ok and group_probe
+        self.tables = device_tables(index, self.device, group_ok=group_ok)
+        if "group_bucket" in self.tables:
+            self.params = replace(self.params, group_g=index.pair_g)
 
         if chunk_size is None:
-            chunk_size = auto_chunk_size(index, self.max_len, paired, self.device)
+            chunk_size = auto_chunk_size(index, self.max_len, paired, self.device, group_ok)
             if chunk_cap is not None and chunk_cap < chunk_size:
                 # a chunk larger than the read batches would pad every batch
                 chunk_size = max(1 << int(np.log2(max(chunk_cap, 1))), 1)
@@ -480,7 +576,7 @@ class AlignEngine:
     def collect_async(self, pending):
         """Copy dispatched packed outputs to host numpy and unpack them."""
         outs = []
-        W = group_words(self.tables)
+        W = table_words(self.tables)
         for flat, valid in pending:
             outs.append(unpack_outputs(flat.cpu().numpy(), W, valid))
         if not outs:

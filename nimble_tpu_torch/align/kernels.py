@@ -1,15 +1,24 @@
-"""The window-stage kernel of the group-probe path: `kmer_keys`.
+"""The hand-written kernels of the narrow align paths and their plain torch
+versions.
 
 `kmer_keys(codes, lens, k, n_buckets)` returns the seven (B, P = L-k+1)
 planes of nimble_tpu/align/kernels.py:kmer_keys_pallas — c_hi, c_lo, h1, h2
 as int32 (uint32 bit patterns) and fwd_canon, palindrome, valid as bool.
 
-On a CUDA tensor it launches the hand-written sm_90a kernel in
-csrc/kmer_keys.cu, built with nvcc at first use into _build/ and bound with
-ctypes (a plain C interface, so the build takes seconds, not the minutes a
-build against PyTorch's headers takes). On a CPU tensor it runs
-`kmer_keys_reference`, the plain torch twin. Nothing falls back from one to
-the other: a CUDA launch either succeeds or raises.
+`mono_probe(bucket, h1, hi_i, lo_i, fwd_canon, palindrome, valid, stash, W)`
+returns the (B, P, W) bits_f and bits_r of nimble_tpu/align/engine.py:
+mono_probe: the mono-table row gather, slot select, stash sweep and
+orientation select that the reference splits between XLA and
+kernels.py:mono_select_pallas.
+
+On CUDA tensors each wrapper launches its hand-written sm_90a kernel
+(csrc/kmer_keys.cu, csrc/mono_probe.cu), built with nvcc at first use into
+_build/ and bound with ctypes (a plain C interface, so the build takes
+seconds, not the minutes a build against PyTorch's headers takes). On CPU
+tensors it runs the plain torch version (`kmer_keys_reference`,
+`mono_probe_reference`). Nothing falls back from one to the other: a CUDA
+launch either succeeds or raises. Each wrapper counts its kernel launches
+in `<wrapper>.launches`.
 """
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ import threading
 
 import torch
 
+from nimble_tpu_torch.align.tables import MONO_MAX_STASH
 from nimble_tpu_torch.index.hashing import MASK32, bucket_hashes
 
 N_CODE = 4
@@ -32,7 +42,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _lib = None
@@ -141,24 +151,34 @@ def library_path() -> str:
 
 
 def build() -> str:
-    """Compile csrc/*.cu into the shared library unless it is already built.
-    Returns its path."""
+    """Compile csrc/*.cu into the shared library unless it is already built:
+    one nvcc per source, all started together, then one link. Returns its
+    path."""
     path = library_path()
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     srcs = sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cu"))
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in srcs]
+        procs = [
+            subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", o, s],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for s, o in zip(srcs, objs)
+        ]
+        failed = []
+        for s, p in zip(srcs, procs):
+            _, err = p.communicate()
+            if p.returncode != 0:
+                failed.append(f"{os.path.basename(s)} ({p.returncode}):\n{err}")
+        if failed:
+            raise RuntimeError("nvcc failed on " + "\n".join(failed))
+        so = os.path.join(tmp, "lib.so")
+        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", so, *objs],
                              capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-        os.replace(tmp, path)  # atomic: concurrent builders never see a partial file
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
+        os.replace(so, path)  # atomic: concurrent builders never see a partial file
     return path
 
 
@@ -176,8 +196,23 @@ def _load():
                 *[ctypes.c_void_p] * 7,  # the 7 output planes
                 ctypes.c_void_p,  # stream
             ]
+            lib.nt_mono_probe.restype = ctypes.c_int
+            lib.nt_mono_probe.argtypes = [
+                ctypes.c_int,  # device
+                ctypes.c_void_p, ctypes.c_int64,  # bucket, nb2
+                ctypes.c_int, ctypes.c_int,  # S, W
+                *[ctypes.c_void_p] * 6,  # h1, hi, lo, fwd_canon, palindrome, valid
+                ctypes.c_int64,  # windows
+                ctypes.c_void_p, ctypes.c_int,  # stash, n_stash
+                ctypes.c_void_p, ctypes.c_void_p,  # bits_f, bits_r
+                ctypes.c_void_p,  # stream
+            ]
             _lib = lib
     return _lib
+
+
+def _device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
 def kmer_keys(codes: torch.Tensor, lens: torch.Tensor, k: int, n_buckets: int):
@@ -210,8 +245,7 @@ def kmer_keys(codes: torch.Tensor, lens: torch.Tensor, k: int, n_buckets: int):
     outs += [torch.empty((B, P), dtype=torch.bool, device=dev) for _ in range(3)]
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.nt_kmer_keys(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        codes.data_ptr(), lens.data_ptr(), B, L, k, n_buckets - 1,
+        _device_index(dev), codes.data_ptr(), lens.data_ptr(), B, L, k, n_buckets - 1,
         *[o.data_ptr() for o in outs], stream,
     )
     if err != 0:
@@ -221,3 +255,89 @@ def kmer_keys(codes: torch.Tensor, lens: torch.Tensor, k: int, n_buckets: int):
 
 
 kmer_keys.launches = 0
+
+
+def mono_probe_reference(bucket: torch.Tensor, h1: torch.Tensor, hi_i: torch.Tensor,
+                         lo_i: torch.Tensor, fwd_canon: torch.Tensor,
+                         palindrome: torch.Tensor, valid: torch.Tensor,
+                         stash: torch.Tensor, W: int):
+    """The plain torch version of the kernel: engine.py:mono_probe's XLA
+    branch after the row gather `bucket[h1]`. Slot select by key compare
+    (empty slots hold hi = -1, which no canonical key has), sum-select of
+    the one matching slot, stash OR, orientation select, invalid windows
+    zeroed."""
+    B, P = hi_i.shape
+    S = bucket.shape[1] // (2 + 2 * W)
+    row = bucket[h1.long()]  # (B, P, S * (2 + 2W))
+    match = (row[..., 0:S] == hi_i[..., None]) & (row[..., S : 2 * S] == lo_i[..., None])
+    sel = match[:, :, None, :]  # (B, P, 1, S)
+    vsb = row[..., 2 * S : 2 * S + W * S].reshape(B, P, W, S)
+    vdb = row[..., 2 * S + W * S :].reshape(B, P, W, S)
+    zero = torch.zeros((), dtype=torch.int32, device=bucket.device)
+    # at most one slot matches (keys are unique): the int64 sum holds
+    # exactly that slot's int32 word
+    vs = torch.where(sel, vsb, zero).sum(dim=3).to(torch.int32)
+    vd = torch.where(sel, vdb, zero).sum(dim=3).to(torch.int32)
+    for s in range(stash.shape[0]):
+        m = ((stash[s, 0] == hi_i) & (stash[s, 1] == lo_i))[..., None]
+        vs = vs | torch.where(m, stash[s, 2 : 2 + W], zero)
+        vd = vd | torch.where(m, stash[s, 2 + W :], zero)
+    fc = fwd_canon[..., None]
+    bits_f = torch.where(fc, vs, vd)
+    bits_r = torch.where(palindrome[..., None], vs, torch.where(fc, vd, vs))
+    v = valid[..., None]
+    return torch.where(v, bits_f, zero), torch.where(v, bits_r, zero)
+
+
+def mono_probe(bucket: torch.Tensor, h1: torch.Tensor, hi_i: torch.Tensor,
+               lo_i: torch.Tensor, fwd_canon: torch.Tensor, palindrome: torch.Tensor,
+               valid: torch.Tensor, stash: torch.Tensor, W: int):
+    """The fused mono probe. bucket (nb2, S*(2+2W)) int32 mono table; h1,
+    hi_i, lo_i (B, P) int32 (bucket hash and canonical key bit patterns);
+    fwd_canon, palindrome, valid (B, P) bool; stash (n_stash, 2+2W) int32
+    rows [hi, lo, vs_bits, vd_bits] -> (bits_f, bits_r), each (B, P, W)
+    int32. Every tensor must be contiguous and on one device."""
+    if W < 1:
+        raise ValueError(f"W must be >= 1, got {W}")
+    E = 2 + 2 * W
+    if bucket.dim() != 2 or bucket.dtype != torch.int32 or bucket.shape[1] % E or bucket.shape[1] == 0:
+        raise ValueError(f"bucket must be (nb2, S*{E}) int32, got {tuple(bucket.shape)} {bucket.dtype}")
+    if stash.dim() != 2 or stash.dtype != torch.int32 or stash.shape[1] != E:
+        raise ValueError(f"stash must be (n_stash, {E}) int32, got {tuple(stash.shape)} {stash.dtype}")
+    if stash.shape[0] > MONO_MAX_STASH:  # the kernel's stash-match mask is 64 bits
+        raise ValueError(f"stash holds {stash.shape[0]} rows, more than {MONO_MAX_STASH}")
+    if hi_i.dim() != 2:
+        raise ValueError(f"hi_i must be (B, P), got {tuple(hi_i.shape)}")
+    planes = {"h1": h1, "hi_i": hi_i, "lo_i": lo_i, "fwd_canon": fwd_canon,
+              "palindrome": palindrome, "valid": valid}
+    for name, a in planes.items():
+        want = torch.bool if name in ("fwd_canon", "palindrome", "valid") else torch.int32
+        if a.dtype != want or a.shape != hi_i.shape:
+            raise ValueError(f"{name} must be {tuple(hi_i.shape)} {want}, got {tuple(a.shape)} {a.dtype}")
+    tensors = [bucket, stash, *planes.values()]
+    dev = bucket.device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"mono_probe needs every tensor on one device, got {[str(t.device) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("mono_probe needs contiguous tensors (make strided key planes contiguous first)")
+    if dev.type == "cpu":
+        return mono_probe_reference(bucket, h1, hi_i, lo_i, fwd_canon, palindrome, valid, stash, W)
+    if dev.type != "cuda":
+        raise ValueError(f"mono_probe runs on cuda or cpu tensors, got {dev}")
+    lib = _load()
+    B, P = hi_i.shape
+    bits_f = torch.empty((B, P, W), dtype=torch.int32, device=dev)
+    bits_r = torch.empty((B, P, W), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.nt_mono_probe(
+        _device_index(dev), bucket.data_ptr(), bucket.shape[0], bucket.shape[1] // E, W,
+        *[a.data_ptr() for a in planes.values()], B * P,
+        stash.data_ptr(), stash.shape[0], bits_f.data_ptr(), bits_r.data_ptr(), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"mono_probe kernel launch failed: cudaError {err}")
+    mono_probe.launches += 1
+    return bits_f, bits_r
+
+
+mono_probe.launches = 0

@@ -2,15 +2,15 @@
 several libraries.
 
 Copied from nimble_tpu/align/pipeline.py (which cannot be imported without
-jax) with what the group-probe slice needs, and driving the torch engine on
-an explicit device. The TSV schema, set-size filters, group_on collapse,
-trimming and the short-read repair are the reference's own, so the output
-is byte-identical.
+jax) with what the narrow group and mono paths need, and driving the torch
+engine on an explicit device. The TSV schema, set-size filters, group_on
+collapse, trimming, `--probe` and the group path's short-read repair are the
+reference's own, so the output is byte-identical.
 
 The port runs one process on one device. It refuses the reference's
-`--mesh`, `--resume`, `--probe mono` and multi-process worlds (ROADMAP
-Queue 1 items 9 and 13); several comma-separated libraries run as one
-engine each, as the reference does under NIMBLE_TPU_NO_STACK=1.
+`--mesh`, `--resume` and multi-process worlds (ROADMAP Queue 1 item 13);
+several comma-separated libraries run as one engine each, as the reference
+does under NIMBLE_TPU_NO_STACK=1.
 """
 from __future__ import annotations
 
@@ -283,11 +283,14 @@ class LibraryRunner:
         return len(lines)
 
 
-def make_runner(library_path: str, output_path: str) -> LibraryRunner:
-    """Load a library and its index (the persisted sidecar when fresh); the
-    engine is built later, once the read width is known."""
+def make_runner(library_path: str, output_path: str,
+                group_g: Optional[int] = None) -> LibraryRunner:
+    """Load a library and its index (the persisted sidecar when fresh; its
+    cache key includes group_g, so group and mono indexes cache apart); the
+    engine is built later, once the read width is known. group_g = 0 builds
+    a mono index (no group entries), None the default group index."""
     config, data = load_library(library_path)
-    index = build_index_for_library(library_path, data, config)
+    index = build_index_for_library(library_path, data, config, group_g=group_g)
     emit = EmitConfig(
         group_on=bool(config.group_on),
         discard_multiple_matches=bool(config.discard_multiple_matches),
@@ -505,15 +508,13 @@ def _build_engines(runners: List[LibraryRunner], device: torch.device,
             )
 
 
-def refuse_unported(mesh: str = "", resume: bool = False, probe: str = "group") -> None:
+def refuse_unported(mesh: str = "", resume: bool = False) -> None:
     """Raise NotImplementedError for `align` options the port has not taken
     over from the reference, naming the ROADMAP item that will."""
     if mesh:
         raise NotImplementedError("--mesh: multi-GPU align is ROADMAP Queue 1 item 13")
     if resume:
         raise NotImplementedError("--resume is not ported (ROADMAP Queue 1 item 13)")
-    if probe == "mono":
-        raise NotImplementedError("--probe mono: the mono path is ROADMAP Queue 1 item 9")
     if os.environ.get("JAX_COORDINATOR_ADDRESS") or int(os.environ.get("NIMBLE_TPU_NUM_PROCS", "1") or 1) > 1:
         raise NotImplementedError(
             "multi-process align worlds are ROADMAP Queue 1 item 13 "
@@ -531,10 +532,16 @@ def align_files(
     batch_records: Optional[int] = None,
     trim: str = "",
     num_cores: int = 1,
+    probe: str = "group",
 ) -> int:
     """The `align` subcommand on `device`: 1-2 FASTQs or 1 BAM against a
     comma-separated library list, one output TSV per library. Returns a
     process exit code (nonzero on reader/engine failure).
+
+    probe "group" (the default) probes one (k+g-1)-mer per g read windows;
+    "mono" probes every k-window, the reference-faithful per-k-mer
+    contract. It is threaded as group_g into the index build (0 = no group
+    entries, so the engine takes the mono path), as in the reference.
 
     max_len <= 0 (the default) sizes the packed read width from the first
     batch's longest read (rounded up to a multiple of 16, at least 32,
@@ -551,6 +558,9 @@ def align_files(
 
     from nimble_tpu_torch.align.host_probe import HostMonoProber, patch_short_reads
 
+    if probe not in ("group", "mono"):
+        raise ValueError(f"--probe must be 'group' or 'mono', got {probe!r}")
+    group_g = 0 if probe == "mono" else None
     log = runlog()
     library_list = reference.split(",")
     is_bam = os.path.splitext(inputs[0])[-1].lower() == ".bam"
@@ -577,7 +587,7 @@ def align_files(
             out_append = ""
             if len(library_list) > 1:
                 out_append = "." + os.path.splitext(os.path.basename(library))[0]
-            runner = make_runner(library, append_path_string(output, out_append))
+            runner = make_runner(library, append_path_string(output, out_append), group_g)
             if lib_idx in trim_targets:
                 runner.trim = trim_targets[lib_idx]
             elif runner.config.trim_spec() is not None:
@@ -615,9 +625,11 @@ def align_files(
         feeder = SpanFeeder(span, paired)
 
         def patch_short(r, out, sb):
-            # rows whose shortest mate is under k+g-1 get exact host mono
-            # results instead of the group path's unmapped verdict
+            # group path only: rows whose shortest mate is under k+g-1 get
+            # exact host mono results instead of its unmapped verdict
             group_g = r.engine.params.group_g
+            if out is None or group_g < 2:
+                return
             min_len = r.index.k + group_g - 1
             l1 = trimmed_lens(sb["r1_lens"], r.trim)
             l2 = trimmed_lens(sb["r2_lens"], r.trim) if paired else None

@@ -1,16 +1,24 @@
-"""Group-probe device tables: the group branch of
+"""Device tables of the narrow align paths: the W <= 16 branch of
 nimble_tpu/align/engine.py:_device_tables, as a dict of int32 tensors.
 
 The builders below are numpy copies of engine.py's `_single_hash_placement`,
-`_group_entry_payload` and `_build_group_tables`, with the same constants, so
+`_group_entry_payload`, `_build_group_tables`, `_build_mono_tables` and the
+two-choice inline bucket of `_device_tables`, with the same constants, so
 that every key lands in the same bucket and slot as in the reference (the
-reference module cannot be imported without jax). Only what the group path
-reads is built: the group bucket table and its stash. The two-choice
-`bucket` table and `class_bits` are not shipped; the bitset width W is read
-off the stash planes.
+reference module cannot be imported without jax). Each builder returns the
+reference's own keys as numpy arrays; `tables_from_reference` turns them
+into the port's tensors. One path's tables are shipped, never the arrays it
+does not read (`class_bits`, the two-choice bucket beside a mono or group
+table); the bitset width W is read off the stash planes (`table_words`).
 
 Group bucket row layout (S = MONO_SLOTS slots):
   [hi x S | lo x S | vs_and (W, S) | vd_and (W, S) | mask x S]
+Mono bucket row layout (planar, slot-minor):
+  [hi x S | lo x S | vs_bits (W, S) | vd_bits (W, S)]
+with its stash shipped as one (n_stash, 2 + 2W) matrix of
+  [hi | lo | vs_bits (W) | vd_bits (W)] rows (`mono_stash`).
+Two-choice inline bucket row layout (S = BUCKET_SLOTS slots):
+  [hi x S | lo x S | vsame x S | vdiff x S | vs_bits (S, W) | vd_bits (S, W)]
 """
 from __future__ import annotations
 
@@ -19,7 +27,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from nimble_tpu.index.builder import KmerIndex
+from nimble_tpu.index.builder import BUCKET_SLOTS, KmerIndex
 from nimble_tpu.index.hashing import bucket_hashes_np
 
 MONO_SLOTS = 4
@@ -27,6 +35,7 @@ MONO_MAX_BYTES = 6 << 30
 MONO_MAX_STASH = 64
 MONO_TIGHT_STASH = 8
 GROUP_MAX_WORDS = 8
+INLINE_BITS_MAX_WORDS = 16  # up to 512 features
 
 GROUP_KEYS = (
     "group_bucket",
@@ -36,11 +45,25 @@ GROUP_KEYS = (
     "group_stash_vd_and",
     "group_stash_mask",
 )
+# the reference's mono keys; the port ships the four stash planes as one
+# `mono_stash` matrix, the layout the mono_probe kernel reads
+MONO_KEYS = (
+    "mono_bucket",
+    "mono_stash_hi",
+    "mono_stash_lo",
+    "mono_stash_vs_bits",
+    "mono_stash_vd_bits",
+)
+INLINE_KEYS = ("bucket", "stash_hi", "stash_lo", "stash_vs_bits", "stash_vd_bits")
 
 
-def group_words(tables: Dict[str, torch.Tensor]) -> int:
-    """Bitset width W of a group table set."""
-    return int(tables["group_stash_vs_and"].shape[1])
+def table_words(tables: Dict[str, torch.Tensor]) -> int:
+    """Bitset width W of a group, mono or two-choice table set."""
+    if "group_stash_vs_and" in tables:
+        return int(tables["group_stash_vs_and"].shape[1])
+    if "mono_stash" in tables:
+        return (int(tables["mono_stash"].shape[1]) - 2) // 2
+    return int(tables["stash_vs_bits"].shape[1])
 
 
 def _bits_of(index: KmerIndex):
@@ -172,25 +195,119 @@ def build_group_tables(index: KmerIndex) -> Optional[Dict[str, np.ndarray]]:
     }
 
 
-def tables_from_reference(np_tables, device) -> Dict[str, torch.Tensor]:
-    """The reference's `_device_tables(index)` output, taken as numpy arrays,
-    -> the port's tensors on `device`. Only the group entries are carried."""
-    missing = [k for k in GROUP_KEYS if k not in np_tables]
-    if missing:
-        raise ValueError(f"reference tables have no group entries (missing {missing})")
+def build_mono_tables(index: KmerIndex) -> Optional[Dict[str, np.ndarray]]:
+    """engine.py:_build_mono_tables as numpy arrays: every occupied
+    two-choice entry reinserted by h1 into single-hash buckets of MONO_SLOTS
+    slots. None when the index is empty or placement blows its budget."""
+    W = index.bitset_words
+    occ = (index.table_vsame >= 0) | (index.table_vdiff >= 0)
+    socc = (index.stash_vsame >= 0) | (index.stash_vdiff >= 0)
+    hi = np.concatenate([index.table_hi[occ], index.stash_hi[socc]])
+    lo = np.concatenate([index.table_lo[occ], index.stash_lo[socc]])
+    vs = np.concatenate([index.table_vsame[occ], index.stash_vsame[socc]])
+    vd = np.concatenate([index.table_vdiff[occ], index.stash_vdiff[socc]])
+    if hi.shape[0] == 0:
+        return None
+    entry = 2 + 2 * W
+    placement = _single_hash_placement(hi, lo, entry, MONO_SLOTS)
+    if placement is None:
+        return None
+    nb2, b, s, keys, skeys = placement
+    bits_of = _bits_of(index)
+    vs_bits = bits_of(vs)
+    vd_bits = bits_of(vd)
+
+    S = MONO_SLOTS
+    table = np.zeros((nb2, S * entry), dtype=np.int32)
+    table[:, 0:S] = -1  # EMPTY key sentinel: canonical hi < 2^30 never matches
+    table[b, s] = hi[keys].view(np.int32)
+    table[b, S + s] = lo[keys].view(np.int32)
+    for w in range(W):
+        table[b, 2 * S + w * S + s] = vs_bits[keys, w]
+        table[b, 2 * S + W * S + w * S + s] = vd_bits[keys, w]
+
+    n_stash = skeys.shape[0]
+    pad = max(1, n_stash)
+    ms_hi = np.full(pad, -1, dtype=np.int32)  # padding rows can never match
+    ms_lo = np.zeros(pad, dtype=np.int32)
+    ms_vsb = np.zeros((pad, W), dtype=np.int32)
+    ms_vdb = np.zeros((pad, W), dtype=np.int32)
+    if n_stash:
+        ms_hi[:n_stash] = hi[skeys].view(np.int32)
+        ms_lo[:n_stash] = lo[skeys].view(np.int32)
+        ms_vsb[:n_stash] = vs_bits[skeys]
+        ms_vdb[:n_stash] = vd_bits[skeys]
     return {
-        k: torch.from_numpy(np.array(np_tables[k], dtype=np.int32)).to(device)
-        for k in GROUP_KEYS
+        "mono_bucket": table,
+        "mono_stash_hi": ms_hi,
+        "mono_stash_lo": ms_lo,
+        "mono_stash_vs_bits": ms_vsb,
+        "mono_stash_vd_bits": ms_vdb,
     }
 
 
-def device_tables(index: KmerIndex, device) -> Optional[Dict[str, torch.Tensor]]:
-    """Group-probe tables on `device`, or None when the index cannot take the
-    narrow group path (W > GROUP_MAX_WORDS, no group entries, or infeasible
-    placement)."""
-    if index.bitset_words > GROUP_MAX_WORDS:
-        return None
-    tables = build_group_tables(index)
+def build_inline_tables(index: KmerIndex) -> Dict[str, np.ndarray]:
+    """The two-choice inline bucket of engine.py:_device_tables (W <= 16)
+    and its stash bitsets, as numpy arrays: the fallback when mono
+    placement is infeasible."""
+    nb = index.n_buckets
+    S = BUCKET_SLOTS
+    W = index.bitset_words
+    bits_of = _bits_of(index)
+    packed = np.empty((nb, 4 * S + 2 * S * W), dtype=np.int32)
+    packed[:, 0:S] = index.table_hi.reshape(nb, S).view(np.int32)
+    packed[:, S : 2 * S] = index.table_lo.reshape(nb, S).view(np.int32)
+    packed[:, 2 * S : 3 * S] = index.table_vsame.reshape(nb, S)
+    packed[:, 3 * S : 4 * S] = index.table_vdiff.reshape(nb, S)
+    packed[:, 4 * S : 4 * S + S * W] = bits_of(index.table_vsame).reshape(nb, S * W)
+    packed[:, 4 * S + S * W :] = bits_of(index.table_vdiff).reshape(nb, S * W)
+    return {
+        "bucket": packed,
+        "stash_hi": index.stash_hi.view(np.int32),
+        "stash_lo": index.stash_lo.view(np.int32),
+        "stash_vs_bits": bits_of(index.stash_vsame),
+        "stash_vd_bits": bits_of(index.stash_vdiff),
+    }
+
+
+def tables_from_reference(np_tables, device) -> Dict[str, torch.Tensor]:
+    """The reference's `_device_tables(index)` output, taken as numpy arrays,
+    -> the port's tensors on `device`, for the path the reference's
+    `_score_mate` would take on them: group, else mono, else two-choice.
+    Only that path's entries are carried."""
+    # copies only what is not already writable contiguous int32 (a
+    # multi-GB table is not duplicated on the host)
+    as_t = lambda a: torch.from_numpy(np.require(a, np.int32, ["C", "W"])).to(device)
+    if all(k in np_tables for k in GROUP_KEYS):
+        return {k: as_t(np_tables[k]) for k in GROUP_KEYS}
+    if all(k in np_tables for k in MONO_KEYS):
+        stash = np.concatenate(
+            [np.asarray(np_tables["mono_stash_hi"])[:, None],
+             np.asarray(np_tables["mono_stash_lo"])[:, None],
+             np_tables["mono_stash_vs_bits"], np_tables["mono_stash_vd_bits"]],
+            axis=1,
+        )
+        return {"mono_bucket": as_t(np_tables["mono_bucket"]), "mono_stash": as_t(stash)}
+    missing = [k for k in INLINE_KEYS if k not in np_tables]
+    if missing:
+        raise ValueError(f"reference tables carry no group, mono or two-choice entries (missing {missing})")
+    return {k: as_t(np_tables[k]) for k in INLINE_KEYS}
+
+
+def device_tables(index: KmerIndex, device, group_ok: bool = True) -> Dict[str, torch.Tensor]:
+    """The tables of one narrow path on `device`, chosen as the reference's
+    `_device_tables(index, group_ok=group_ok)` chooses for W <= 16: the
+    group table when allowed, the index has group entries, W <= 8 and
+    placement fits; else the mono table when placement fits; else the
+    two-choice inline bucket."""
+    W = index.bitset_words
+    if W > INLINE_BITS_MAX_WORDS:
+        raise ValueError(f"{W}-word bitsets are wider than the inline paths take ({INLINE_BITS_MAX_WORDS})")
+    tables = None
+    if group_ok and W <= GROUP_MAX_WORDS:
+        tables = build_group_tables(index)
     if tables is None:
-        return None
+        tables = build_mono_tables(index)
+    if tables is None:
+        tables = build_inline_tables(index)
     return tables_from_reference(tables, device)

@@ -194,23 +194,38 @@ def test_auto_chunk_size_uncapped_on_cuda(lib):
 
 
 def test_engine_refuses_unported_paths(lib):
+    """Libraries wider than 512 features (W > 16) need the wide paths; a
+    step on tables of no narrow path raises."""
     seqs, index, _, tables = lib
-    with pytest.raises(NotImplementedError, match="mono path"):
-        T.AlignEngine(index, Config(kmer_stride=2), CPU)
-    _, data = _library()
-    mono = build_index(data, Config(), group_g=0)
-    with pytest.raises(NotImplementedError, match="group entries"):
-        T.AlignEngine(mono, Config(), CPU)
-    with pytest.raises(NotImplementedError, match="k\\+g-1"):
-        T.AlignEngine(index, Config(), CPU, max_len=24)
-    _, wide = _library(n_features=300, length=200)
+    _, wide = _library(n_features=600, length=60)
     wide_index = build_index(wide, Config())
-    assert wide_index.bitset_words > 8
+    assert wide_index.bitset_words > 16
     with pytest.raises(NotImplementedError, match="wide paths"):
         T.AlignEngine(wide_index, Config(), CPU)
-    p = T.AlignParams.from_config(Config(), index)
-    with pytest.raises(NotImplementedError, match="group-probe path"):
+    p = T.AlignParams.from_config(Config(), index)  # group_g = 0: not the group path
+    with pytest.raises(NotImplementedError, match="wide paths"):
         T.align_step(tables, p, torch.zeros((2, 40), dtype=torch.int8), torch.full((2,), 40, dtype=torch.int32))
+
+
+@pytest.mark.parametrize(
+    "make, kw",
+    [
+        (lambda index: (index, Config(kmer_stride=2)), {}),
+        (lambda index: (build_index(_library()[1], Config(), group_g=0), Config()), {}),
+        (lambda index: (index, Config()), {"max_len": 24}),
+        (lambda index: (index, Config()), {"group_probe": False}),
+        (lambda index: (build_index(_library(n_features=300, length=200)[1], Config()), Config()), {}),
+    ],
+    ids=["stride2", "no-group-entries", "max-len-24", "group-probe-off", "w10"],
+)
+def test_engine_takes_the_mono_path_where_the_group_path_cannot(lib, make, kw):
+    """Where the reference's group_ok is false (engine.py:2740-2750), the
+    engine ships the mono table and runs with group_g = 0."""
+    _, index, _, _ = lib
+    idx, config = make(index)
+    eng = T.AlignEngine(idx, config, CPU, **kw)
+    assert set(eng.tables) == {"mono_bucket", "mono_stash"}
+    assert eng.params.group_g == 0
 
 
 @pytest.mark.parametrize(

@@ -1,7 +1,8 @@
-"""The 15 group-path align goldens, byte-identical through the port's CLI
-(`python -m nimble_tpu_torch align --device cpu`). Mirrors
-tests/test_goldens.py; `probe_mono`, `mismatch1` and `mismatch2` need the
-mono path (ROADMAP Queue 1 item 9) and are not in this list."""
+"""The 18 align goldens, byte-identical through the port's CLI
+(`python -m nimble_tpu_torch align --device cpu`): the 15 group-path cases
+and the 3 that pin the mono path (`probe_mono` under `--probe mono`;
+`mismatch1` and `mismatch2`, whose indexes have no group entries). Mirrors
+tests/test_goldens.py; `legacy_filters` is shared host code."""
 import pathlib
 import shutil
 
@@ -13,17 +14,17 @@ from nimble_tpu_torch.__main__ import main as cli
 GOLD = pathlib.Path(__file__).resolve().parent / "goldens"
 
 FLAG_CASES = {
+    "probe_mono": ["--probe", "mono"],
     "strand_fiveprime": ["--strand_filter", "fiveprime"],
 }
 SINGLE_END_CASES = {"strand_fiveprime"}
-MONO_CASES = {"probe_mono", "mismatch1", "mismatch2"}
 
 
-def group_cases():
+def golden_cases():
     return sorted(
         p.stem[len("golden_"):]
         for p in GOLD.glob("golden_*.tsv")
-        if p.stem != "golden_legacy_filters" and p.stem[len("golden_"):] not in MONO_CASES
+        if p.stem != "golden_legacy_filters"
     )
 
 
@@ -40,7 +41,10 @@ def staging(tmp_path_factory):
 
 
 def test_fifteen_group_cases():
-    assert len(group_cases()) == 15
+    """15 group-path cases plus the 3 mono-path ones."""
+    cases = golden_cases()
+    assert len(cases) == 18
+    assert {"probe_mono", "mismatch1", "mismatch2"} <= set(cases)
 
 
 def _check_golden(case, staging):
@@ -57,7 +61,7 @@ def _check_golden(case, staging):
     )
 
 
-@pytest.mark.parametrize("case", group_cases())
+@pytest.mark.parametrize("case", golden_cases())
 def test_golden_on_cpu(case, staging):
     _check_golden(case, staging)
 
@@ -78,9 +82,8 @@ def test_golden_without_native_io(case, staging, monkeypatch):
     [
         ["align", "--mesh", "data=2"],
         ["align", "--resume"],
-        ["align", "--probe", "mono"],
     ],
-    ids=["mesh", "resume", "probe-mono"],
+    ids=["mesh", "resume"],
 )
 def test_align_refuses_unported_options(args, staging, capsys):
     rc = cli([args[0], "--reference", str(staging / "lib_base.json"),

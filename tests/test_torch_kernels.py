@@ -1,7 +1,8 @@
-"""The port's window stage (nimble_tpu_torch/align/kernels.py) against the
-reference: `kmer_keys_pallas` in interpret mode and the engine's jnp path,
-exactly, on all 7 planes. The CUDA kernel against its torch twin runs only
-where a card is visible."""
+"""The port's kernels (nimble_tpu_torch/align/kernels.py) against the
+reference: `kmer_keys` against `kmer_keys_pallas` in interpret mode and the
+engine's jnp path, exactly, on all 7 planes; `mono_probe`'s argument checks
+(its values are held in tests/test_torch_mono.py). The CUDA kernels against
+their plain torch versions run only where a card is visible."""
 import numpy as np
 import pytest
 import torch
@@ -99,3 +100,81 @@ def test_cuda_kernel_matches_twin(B, L, k):
     assert K.kmer_keys.launches == before + 1
     for name, g, w in zip(PLANES, got, want):
         assert torch.equal(g, w), name
+
+
+def _mono_args(B=5, P=7, W=3, S=4, n_stash=2, seed=0):
+    """Random mono-probe arguments with unique keys: bucket rows whose slots
+    hold some of the queried keys, a stash holding others."""
+    rng = np.random.default_rng(seed)
+    nb2 = 64
+    E = 2 + 2 * W
+    hi = rng.integers(0, 1 << 20, size=(B, P)).astype(np.int32)
+    lo = np.arange(B * P, dtype=np.int32).reshape(B, P)  # unique keys
+    h1 = rng.integers(0, nb2, size=(B, P)).astype(np.int32)
+    bucket = rng.integers(-(1 << 31), 1 << 31, size=(nb2, S * E), dtype=np.int64).astype(np.int32)
+    bucket[:, :S] = -1
+    flat_b, flat_p = np.unravel_index(np.arange(B * P), (B, P))
+    for i in range(0, B * P, 2):  # every other key sits in its bucket
+        b, p = flat_b[i], flat_p[i]
+        slot = i % S
+        bucket[h1[b, p], slot] = hi[b, p]
+        bucket[h1[b, p], S + slot] = lo[b, p]
+    stash = rng.integers(-(1 << 31), 1 << 31, size=(n_stash, E), dtype=np.int64).astype(np.int32)
+    stash[:, 0] = hi.reshape(-1)[1 : 2 * n_stash : 2]
+    stash[:, 1] = lo.reshape(-1)[1 : 2 * n_stash : 2]
+    flags = [rng.random((B, P)) < f for f in (0.5, 0.1, 0.8)]
+    t = torch.from_numpy
+    return (t(bucket), t(h1), t(hi), t(lo), *[t(f) for f in flags], t(stash), W)
+
+
+def test_mono_probe_cpu_runs_the_plain_version():
+    args = _mono_args()
+    got = K.mono_probe(*args)
+    want = K.mono_probe_reference(*args)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and g.shape == (5, 7, 3)
+        assert torch.equal(g, w)
+    assert (got[0] != 0).any() and (got[1] != 0).any()
+
+
+def _replace(args, i, value):
+    args = list(args)
+    args[i] = value
+    return args
+
+
+@pytest.mark.parametrize(
+    "mutate, err",
+    [
+        (lambda a: _replace(a, 0, a[0].to(torch.int64)), "bucket must be"),
+        (lambda a: _replace(a, 0, a[0][:, :-1].contiguous()), "bucket must be"),
+        (lambda a: _replace(a, 7, a[7][:, :-1].contiguous()), "stash must be"),
+        (lambda a: _replace(a, 7, torch.zeros((65, 8), dtype=torch.int32)), "more than 64"),
+        (lambda a: _replace(a, 1, a[1].to(torch.int64)), "h1 must be"),
+        (lambda a: _replace(a, 6, a[6].to(torch.uint8)), "valid must be"),
+        (lambda a: _replace(a, 2, a[2][:, :-1].contiguous()), "lo_i must be|hi_i|h1 must be"),
+        (lambda a: _replace(a, 3, torch.zeros((5, 14), dtype=torch.int32)[:, ::2]), "contiguous"),
+        (lambda a: _replace(a, 8, 0), "W must be"),
+    ],
+    ids=["bucket-dtype", "bucket-width", "stash-width", "stash-rows", "h1-dtype",
+         "valid-dtype", "plane-shape", "strided-plane", "W"],
+)
+def test_mono_probe_rejects_bad_arguments(mutate, err):
+    with pytest.raises(ValueError, match=err):
+        K.mono_probe(*mutate(_mono_args()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, P, W, S, n_stash", [(1001, 92, 4, 4, 3), (333, 40, 16, 4, 64), (77, 30, 5, 2, 0)])
+def test_cuda_mono_probe_matches_plain_version(B, P, W, S, n_stash):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    args = [a.cuda() if isinstance(a, torch.Tensor) else a
+            for a in _mono_args(B, P, W, S, n_stash, seed=B)]
+    before = K.mono_probe.launches
+    got = K.mono_probe(*args)
+    want = K.mono_probe_reference(*args)
+    torch.cuda.synchronize()
+    assert K.mono_probe.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -23,18 +23,27 @@ sys.exit(rc)
 """
 
 
-def test_align_cli_runs_without_jax(tmp_path):
+def _align_without_jax(tmp_path, flags, golden):
     shutil.copy(GOLD / "lib_base.json", tmp_path)
     out = tmp_path / "out.tsv"
     res = subprocess.run(
         [sys.executable, "-c", SCRIPT, "align", "--reference", str(tmp_path / "lib_base.json"),
          "--output", str(out), "--input", str(GOLD / "r1.fastq"), str(GOLD / "r2.fastq"),
-         "--device", "cpu"],
+         *flags, "--device", "cpu"],
         cwd=REPO, capture_output=True, text=True, timeout=300,
     )
     assert res.returncode == 0, res.stderr[-3000:]
     assert "LOADED []" in res.stdout
-    assert out.read_bytes() == (GOLD / "golden_base.tsv").read_bytes()
+    assert out.read_bytes() == (GOLD / golden).read_bytes()
+
+
+def test_align_cli_runs_without_jax(tmp_path):
+    _align_without_jax(tmp_path, [], "golden_base.tsv")
+
+
+def test_align_probe_mono_runs_without_jax(tmp_path):
+    """The mono path (tables, mono_probe, engine) imports no jax either."""
+    _align_without_jax(tmp_path, ["--probe", "mono"], "golden_probe_mono.tsv")
 
 
 def _imports(path: pathlib.Path):

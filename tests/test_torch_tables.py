@@ -1,5 +1,6 @@
 """The port's group-probe tables (nimble_tpu_torch/align/tables.py) against
-the reference's `_device_tables(index)` group entries, element for element."""
+the reference's `_device_tables(index)` group entries, element for element.
+The mono and two-choice tables are held in tests/test_torch_mono.py."""
 import pathlib
 
 import numpy as np
@@ -13,7 +14,7 @@ from nimble_tpu_torch.align.tables import (
     GROUP_KEYS,
     build_group_tables,
     device_tables,
-    group_words,
+    table_words,
     tables_from_reference,
 )
 
@@ -47,7 +48,7 @@ def test_group_tables_equal_reference(make_index):
     for k in GROUP_KEYS:
         assert got[k].dtype == np.int32 and np.array_equal(got[k], ref[k]), k
         assert dev[k].dtype == torch.int32 and np.array_equal(dev[k].numpy(), ref[k]), k
-    assert group_words(dev) == index.bitset_words
+    assert table_words(dev) == index.bitset_words
 
 
 def test_synthetic_library_has_a_stash():
@@ -66,13 +67,21 @@ def test_tables_from_reference_carries_group_entries():
     assert set(got) == set(GROUP_KEYS)
     for k in GROUP_KEYS:
         assert np.array_equal(got[k].numpy(), np.asarray(ref[k])), k
-    with pytest.raises(ValueError, match="no group entries"):
+    with pytest.raises(ValueError, match="no group, mono or two-choice entries"):
         tables_from_reference({"bucket": np.zeros((1, 16), np.int32)}, torch.device("cpu"))
 
 
 def test_device_tables_refuse_what_the_group_path_cannot_take():
+    """A mono index (no group entries) or group_ok=False gets the mono
+    table, as the reference's _device_tables gives it; W > 16 raises."""
     index = _golden_index()
     config, data = load_library(str(GOLD / "lib_base.json"))
     mono = build_index(data, config, group_g=0)
-    assert device_tables(mono, torch.device("cpu")) is None
-    assert device_tables(index, torch.device("cpu")) is not None
+    cpu = torch.device("cpu")
+    assert set(device_tables(mono, cpu)) == {"mono_bucket", "mono_stash"}
+    assert set(device_tables(index, cpu, group_ok=False)) == {"mono_bucket", "mono_stash"}
+    assert set(device_tables(index, cpu)) == set(GROUP_KEYS)
+    wide = _synthetic_index(n_seqs=600, length=60)
+    assert wide.bitset_words > 16
+    with pytest.raises(ValueError, match="wider than the inline paths"):
+        device_tables(wide, cpu)
