@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (nimble_tpu_torch).
 
-Drives the port's two align paths — `align` on the default group probe and
-on the mono probe (`--probe mono`, `num_mismatches` 1) against narrow
-libraries — on one CUDA card, after building and checking their kernels:
+Drives the port's three align paths — `align` on the default group probe
+and on the mono probe (`--probe mono`, `num_mismatches` 1) against narrow
+libraries, and on the wide banded group path (gband) against the 20k-allele
+HLA/KIR library — on one CUDA card, after building and checking their
+kernels:
 
   1. device: card, power limit, torch/CUDA versions; the native host IO
-     library (native/), built with the first compiler that can;
+     library (native/), built with the first compiler that can
+     (nimble_tpu_torch/native_build.py, as the port's CLI builds it);
   2. kernel build: nvcc of nimble_tpu_torch/csrc/*.cu, one process per
      source, all started together;
   3. kmer_keys kernel == its plain torch version on all 7 planes, exactly,
@@ -29,10 +32,29 @@ libraries — on one CUDA card, after building and checking their kernels:
      pairs under `--probe mono`, and 524,288 reads of the same generator
      against HLA-100 with `num_mismatches = 1`;
   8. the same 65,536 reads through `align --device cuda` and `--device cpu`
-     give byte-identical TSVs, on the group probe and on `--probe mono`.
+     give byte-identical TSVs, on the group probe and on `--probe mono`;
+  9. the wide workload: the 20k-allele library of scripts/bigindex.py (20
+     families x 1,000 alleles x 3 kb, 25 SNPs each: 20,000 features,
+     W = 625 words), its index (C++ builder), 1,048,576 single-end 100 bp
+     reads and 262,144 pairs (two FASTQs, both mates from one fragment of
+     one allele), 1% substitutions; the engine build timed by part (index
+     load, gband host build + sidecar write, sidecar load, copy to the
+     card);
+ 10. band_tree_expand kernel == its plain torch version, exactly, on the
+     (idx_sel, has_sel) the gband step passes it for real reads at the
+     main-path shape (the engine `align` builds: L = 112, W = 625,
+     Pw = 32) and at the reference bench's L = 100, and on synthetic
+     tables (B not a multiple of the block, (W, Pw, Q1) = (100, 16, 7) and
+     (70, 8, 5), Pw != 32, Q1 = 40, all-miss reads, out-of-range indices
+     where no position contributes); timed with CUDA events;
+ 11. the gband path at real size: the single-end and paired runs;
+ 12. 16,384 of those reads through `align --device cuda` and `--device
+     cpu` give byte-identical TSVs on the gband path.
 
 Each main-path run zeroes the kernels' launch counts just before it and
 reads them just after; the run fails unless every kernel of its path ran.
+It prints its wall, and the index load and engine build inside it (the
+pipeline's stage log, NIMBLE_TPU_RUNLOG).
 
 Any failure raises (exit code != 0). The second-to-last line is a JSON
 record of the kernels; the last line is
@@ -75,6 +97,18 @@ N_PAIRS = 262_144
 N_CMP_READS = 65_536
 N_NM1_READS = 524_288
 MONO = ["--probe", "mono"]
+
+# the 20k-allele HLA/KIR library of scripts/bigindex.py (published shape,
+# not cut) and its reads; the reads are cut from the reference's 2M
+WIDE_FAMILIES = 20
+WIDE_ALLELES = 1000
+WIDE_LEN = 3000
+WIDE_SNPS = 25
+WIDE_ERROR = 0.01
+N_WIDE_READS = 1_048_576
+N_WIDE_PAIRS = 262_144
+N_WIDE_CMP = 16_384
+WIDE_KERNELS = ["kmer_keys", "band_tree_expand"]
 
 
 def say(phase: str, msg: str) -> None:
@@ -128,7 +162,9 @@ def phase_device():
     print(smi, flush=True)
     say("device", f"{name} | torch {torch.__version__} cuda {torch.version.cuda} | "
         f"devices {torch.cuda.device_count()} | host cores {os.cpu_count()}")
-    how = build_native()
+    from nimble_tpu_torch.native_build import build_native
+
+    _ok, how = build_native()  # before the shared loader first looks
     from nimble_tpu.io import native
 
     native_ok = native.available()
@@ -136,27 +172,6 @@ def phase_device():
         how += "; host IO runs the slower python readers and fallbacks, output is unchanged"
     say("device", f"native host IO available: {native_ok} ({how})")
     return name, smi
-
-
-def build_native() -> str:
-    """Build native/libnimble_native.so before the shared loader first looks
-    for it. The loader runs `make -C native` with the environment's CXX, which
-    may name a compiler without OpenMP support; the Makefile's `CXX ?= g++`
-    takes an override, so the system compilers are tried after it."""
-    native_dir = os.path.join(REPO, "native")
-    if os.path.exists(os.path.join(native_dir, "libnimble_native.so")):
-        return "library already present"
-    failures = []
-    for cxx in (None, "g++", "/usr/bin/g++", "c++"):
-        cmd = ["make", "-C", native_dir] + ([f"CXX={cxx}"] if cxx else [])
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
-        label = f"CXX={cxx}" if cxx else f"CXX={os.environ.get('CXX', 'g++')} (environment)"
-        if res.returncode == 0:
-            return f"built with {label}" + (f" after {len(failures)} failed tries" if failures else "")
-        lines = (res.stderr or res.stdout).strip().splitlines()
-        err = [ln for ln in lines if "error" in ln.lower()][:1] or lines[-1:]
-        failures.append(f"{label}: {' '.join(err)}")
-    return "`make -C native` failed: " + " | ".join(failures)
 
 
 def phase_build():
@@ -273,14 +288,22 @@ def drive(label: str, args, n: int, kernels, lo: float = 0.3):
     (wall s, rows, counts)."""
     from nimble_tpu_torch.align import kernels as K
 
-    wrappers = {"kmer_keys": K.kmer_keys, "mono_probe": K.mono_probe}
+    wrappers = {"kmer_keys": K.kmer_keys, "mono_probe": K.mono_probe,
+                "band_tree_expand": K.band_tree_expand}
     for w in wrappers.values():
         w.launches = 0
     out = args[args.index("--output") + 1]
+    log = os.environ["NIMBLE_TPU_RUNLOG"]
+    seen = os.path.getsize(log) if os.path.exists(log) else 0
     t0 = time.perf_counter()
     cli(["align", *args, "--device", "cuda"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    with open(log) as f:
+        f.seek(seen)
+        stages = [json.loads(ln) for ln in f if ln.strip()]
+    setup = {e["stage"]: e["wall_s"] for e in stages if e["event"] == "stage_end"}
+    t_setup = setup.get("index_build", 0.0) + setup.get("engine_build", 0.0)
     counts = {name: w.launches for name, w in wrappers.items()}
     for name in kernels:
         if counts[name] <= 0:
@@ -289,7 +312,8 @@ def drive(label: str, args, n: int, kernels, lo: float = 0.3):
     if not lo < rows / n <= 1.0:
         raise AssertionError(f"{label}: pass rate {rows / n:.4f} outside ({lo}, 1]")
     say("main", f"{label}: {n} in {wall:.2f} s wall, {n / wall:,.0f}/s, pass rate {rows / n:.4f}, "
-        f"launches {counts}")
+        f"launches {counts}; set-up {t_setup:.2f} s (index load {setup.get('index_build', 0.0):.2f}, "
+        f"engine build {setup.get('engine_build', 0.0):.2f}), after it {n / max(wall - t_setup, 1e-9):,.0f}/s")
     return wall, rows, counts
 
 
@@ -356,9 +380,8 @@ def mono_engine(lib: str, group_g):
     return eng
 
 
-def fastq_codes(fq: str, B: int, L: int, seed: int):
-    """The first B reads of a FASTQ as (codes, lens) on the card, with 1% of
-    bases set to N and some reads cut short (under k and under L)."""
+def fastq_head(fq: str, B: int, L: int):
+    """The first B reads of a gz FASTQ as host (codes, lens), width L."""
     import gzip
 
     from nimble_tpu import seq as seqmod
@@ -370,7 +393,13 @@ def fastq_codes(fq: str, B: int, L: int, seed: int):
                 seqs.append(line.strip())
                 if len(seqs) == B:
                     break
-    codes, lens = seqmod.encode_batch(seqs, max_len=L)
+    return seqmod.encode_batch(seqs, max_len=L)
+
+
+def fastq_codes(fq: str, B: int, L: int, seed: int):
+    """The first B reads of a FASTQ as (codes, lens) on the card, with 1% of
+    bases set to N and some reads cut short (under k and under L)."""
+    codes, lens = fastq_head(fq, B, L)
     rng = np.random.default_rng(seed)
     codes[rng.random(codes.shape) < 0.01] = 4
     cut = rng.random(lens.shape[0]) < 0.05
@@ -579,6 +608,275 @@ def phase_cuda_vs_cpu(work: str):
             f"({tsv_rows(outs['cuda'])} rows)")
 
 
+def wide_library(d: str):
+    """scripts/bigindex.py:build_library's 20k-allele library, with its seed
+    and draws (the alleles of scripts/make_big20k_cli.py too), written as a
+    [Config, Data] JSON. Returns (path, alleles (20,000, 3,000) int8)."""
+    from nimble_tpu import seq as seqmod
+    from nimble_tpu.config import Config, Data
+
+    rng = np.random.default_rng(0)
+    data = Data()
+    alleles = np.empty((WIDE_FAMILIES * WIDE_ALLELES, WIDE_LEN), dtype=np.int8)
+    for fam in range(WIDE_FAMILIES):
+        bb = rng.integers(0, 4, size=WIDE_LEN).astype(np.int8)
+        for a in range(WIDE_ALLELES):
+            s = bb.copy()
+            pos = rng.integers(0, WIDE_LEN, size=WIDE_SNPS)
+            s[pos] = rng.integers(0, 4, size=WIDE_SNPS).astype(np.int8)
+            alleles[fam * WIDE_ALLELES + a] = s
+            for col, v in zip(data.columns, ("hla_kir_20k", f"F{fam:02d}*{a:04d}", str(WIDE_LEN),
+                                             seqmod.decode(s))):
+                col.append(v)
+    lib = os.path.join(d, "big20k.json")
+    with open(lib, "w") as f:
+        json.dump([Config().to_dict(), data.__dict__], f)
+    return lib, alleles
+
+
+def _allele_reads(rng, alleles, src, start):
+    """READ_LEN bases of allele `src` from `start`, with WIDE_ERROR
+    substitutions."""
+    codes = alleles[src[:, None], start[:, None] + np.arange(READ_LEN)[None, :]]
+    err = rng.random(codes.shape) < WIDE_ERROR
+    return np.where(err, rng.integers(0, 4, size=codes.shape), codes).astype(np.int8)
+
+
+def _fastq_records(codes, prefix: bytes, first: int, suffix: bytes = b"") -> bytes:
+    lut = np.frombuffer(b"ACGT", dtype=np.uint8)
+    qual = b"I" * codes.shape[1]
+    return b"".join(b"@%s%d%s\n%s\n+\n%s\n" % (prefix, first + i, suffix, r.tobytes(), qual)
+                    for i, r in enumerate(lut[codes]))
+
+
+def phase_wide_data(work: str):
+    """The gband path's workload: the 20k-allele library and its index; gz
+    FASTQs of N_WIDE_READS single-end reads from random alleles (half
+    reverse-complemented), of their first N_WIDE_CMP, and of N_WIDE_PAIRS
+    pairs whose mates come from one 200-400 bp fragment of one allele."""
+    import gzip
+
+    from nimble_tpu import seq as seqmod
+
+    d = os.path.join(work, "wide")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    lib, alleles = wide_library(d)
+    n_al = alleles.shape[0]
+    rng = np.random.default_rng(7)
+    block = 1 << 17
+    fq = os.path.join(d, f"reads20k_{N_WIDE_READS}.fastq.gz")
+    cmp_fq = os.path.join(d, f"reads20k_{N_WIDE_CMP}.fastq.gz")
+    with gzip.open(fq, "wb", compresslevel=1) as f:
+        for s0 in range(0, N_WIDE_READS, block):
+            n = min(block, N_WIDE_READS - s0)
+            codes = _allele_reads(rng, alleles, rng.integers(0, n_al, size=n),
+                                  rng.integers(0, WIDE_LEN - READ_LEN + 1, size=n))
+            rc = rng.random(n) < 0.5
+            codes[rc] = seqmod.revcomp_codes(codes[rc])
+            f.write(_fastq_records(codes, b"r", s0))
+            if s0 == 0:
+                with gzip.open(cmp_fq, "wb", compresslevel=1) as g:
+                    g.write(_fastq_records(codes[:N_WIDE_CMP], b"r", 0))
+    r1 = os.path.join(d, f"pairs20k_r1_{N_WIDE_PAIRS}.fastq.gz")
+    r2 = os.path.join(d, f"pairs20k_r2_{N_WIDE_PAIRS}.fastq.gz")
+    with gzip.open(r1, "wb", compresslevel=1) as f1, gzip.open(r2, "wb", compresslevel=1) as f2:
+        for s0 in range(0, N_WIDE_PAIRS, block):
+            n = min(block, N_WIDE_PAIRS - s0)
+            src = rng.integers(0, n_al, size=n)
+            frag = rng.integers(200, 401, size=n)
+            st = (rng.random(n) * (WIDE_LEN - frag + 1)).astype(np.int64)
+            head = _allele_reads(rng, alleles, src, st)
+            tail = seqmod.revcomp_codes(_allele_reads(rng, alleles, src, st + frag - READ_LEN))
+            flip = (rng.random(n) < 0.5)[:, None]  # fragments of either strand
+            f1.write(_fastq_records(np.where(flip, tail, head), b"p", s0, b"/1"))
+            f2.write(_fastq_records(np.where(flip, head, tail), b"p", s0, b"/2"))
+    say("data", f"generated the 20k-allele library ({n_al} alleles x {WIDE_LEN} bp), {N_WIDE_READS} reads "
+        f"and {N_WIDE_PAIRS} pairs in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cli(["index", "--reference", lib])
+    say("data", f"20k index built (C++ builder) and saved in {time.perf_counter() - t0:.2f} s")
+    return lib, fq, cmp_fq, r1, r2
+
+
+def check_band(label: str, table, idx_sel, has_sel, W: int, Pw: int):
+    """band_tree_expand == band_tree_expand_reference, exactly. Returns
+    (max |diff|, the kernel's output)."""
+    from nimble_tpu_torch.align import kernels as K
+
+    got = K.band_tree_expand(table, idx_sel, has_sel, W, Pw)
+    want = K.band_tree_expand_reference(table, idx_sel, has_sel, W, Pw)
+    torch.cuda.synchronize()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"band_tree_expand {got.dtype}{tuple(got.shape)} != plain "
+                             f"{want.dtype}{tuple(want.shape)} at {label}")
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    if err or not torch.equal(got, want):
+        raise AssertionError(f"band_tree_expand != plain version at {label} (max |diff| {err})")
+    B, Q1 = idx_sel.shape
+    say("kernel", f"band_tree_expand {label}: B={B} Q1={Q1} W={W} Pw={Pw} rows={table.shape[0]}: equals "
+        f"the plain version (positions with a row {float(has_sel.float().mean()):.3f}, reads with bits "
+        f"{float((got != 0).any(dim=1).float().mean()):.3f})")
+    return err, got
+
+
+def band_case(B: int, W: int, Pw: int, Q1: int, seed: int, miss: int = 3, n_rows: int = 4096):
+    """A band table on the card (dense random bands, 2% zero, every page
+    present) and per-read positions near one page: at it or one page up,
+    2% two pages up (an empty AND), 30% without a row (index -1 or
+    past the table's end, which the gather clamps), the first `miss` reads
+    without any. Returns (table, idx_sel, has_sel)."""
+    rng = np.random.default_rng(seed)
+    n_pages = -(-W // Pw)
+    page = np.sort(np.arange(n_rows) % n_pages).astype(np.int32)
+    band = np.bitwise_or.reduce(
+        rng.integers(-(1 << 31), 1 << 31, size=(4, n_rows, 2 * Pw), dtype=np.int64), axis=0).astype(np.int32)
+    band[rng.random(n_rows) < 0.02] = 0
+    start = np.searchsorted(page, np.arange(n_pages))
+    count = np.searchsorted(page, np.arange(n_pages), side="right") - start
+    base = rng.integers(0, n_pages, size=(B, 1))
+    up = (rng.random((B, Q1)) < 0.3).astype(np.int64) + 2 * (rng.random((B, Q1)) < 0.02)
+    pg = np.minimum(base + up, n_pages - 1)
+    idx = start[pg] + (rng.random((B, Q1)) * count[pg]).astype(np.int64)
+    has = rng.random((B, Q1)) < 0.7
+    has[:miss] = False
+    idx = np.where(has, idx, np.where(rng.random((B, Q1)) < 0.5, -1, n_rows + 7)).astype(np.int32)
+    dev = torch.device("cuda")
+    table = np.concatenate([page[:, None], band], axis=1)
+    return tuple(torch.from_numpy(a).to(dev) for a in (table, idx, has))
+
+
+BAND_CASES = [
+    # label, B, W, Pw, Q1, reads without a row
+    ("B=4099 (not a multiple of the 8-read block)", 4099, 625, 32, 16, 3),
+    ("(W, Pw, Q1) = (100, 16, 7)", 4096, 100, 16, 7, 3),
+    ("(W, Pw, Q1) = (70, 8, 5)", 4096, 70, 8, 5, 3),
+    ("Pw=24 (W not a multiple of Pw)", 4096, 625, 24, 16, 3),
+    ("Q1=40 (256 bp reads)", 4096, 625, 32, 40, 3),
+    ("all-miss reads", 1000, 625, 32, 16, 1000),
+]
+
+
+def phase_wide_kernel(lib: str, fq: str):
+    """The engine `align` builds for the 20k library, timed by part, then
+    band_tree_expand against its plain version on the (idx_sel, has_sel)
+    its gband step passes for the first chunk of real reads, and on the
+    synthetic cases; timed at the main-path shape."""
+    from nimble_tpu.index.builder import KmerIndex
+    from nimble_tpu_torch.align import engine as TE
+    from nimble_tpu_torch.align import kernels as K
+    from nimble_tpu_torch.align import tables as TT
+    from nimble_tpu_torch.align.pipeline import _round_len, make_runner
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    r = make_runner(lib, os.devnull)
+    t_load = time.perf_counter() - t0
+    index = r.index
+    t0 = time.perf_counter()
+    host = TT.groupband_tables(index)
+    t_build = time.perf_counter() - t0
+    side = TT.gband_sidecar_path(index)
+    if host is None or not side or not os.path.exists(side):
+        raise AssertionError(f"the 20k library built no gband tables or no sidecar ({side})")
+    t0 = time.perf_counter()
+    eng = TE.AlignEngine(index, r.config, dev, chunk_size=None, max_len=_round_len(READ_LEN))
+    torch.cuda.synchronize()
+    t_h2d = time.perf_counter() - t0
+    if "gband_bucket" not in eng.tables or eng.wire != "idlist":
+        raise AssertionError(f"the 20k engine is not on the gband idlist path ({sorted(eng.tables)}, {eng.wire})")
+    t0 = time.perf_counter()
+    fresh = KmerIndex.load(index._cache_path)
+    t_reload = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = TT.groupband_tables(fresh)
+    t_side = time.perf_counter() - t0
+    for k in ("gband_bucket", "gband_table"):
+        if not np.array_equal(again[k], host[k]):
+            raise AssertionError(f"the sidecar's {k} differs from the fresh build")
+    table = eng.tables["gband_table"]
+    bucket = eng.tables["gband_bucket"]
+    W, Pw = TT.table_words(eng.tables), eng.band_pw
+    say("wide", f"W={W} Pw={Pw} g={index.pair_g} features={index.n_features} classes={index.n_classes} "
+        f"group entries={index.pair_hi.shape[0]}; gband_bucket {tuple(bucket.shape)} = "
+        f"{bucket.numel() * 4 / 1e9:.2f} GB, gband_table {tuple(table.shape)} = {table.numel() * 4 / 1e6:.1f} MB, "
+        f"stash {eng.tables['gband_stash_hi'].shape[0]}; sidecar {os.path.getsize(side) / 1e9:.2f} GB")
+    say("wide", f"engine build by part: index load {t_load:.2f} s (again: {t_reload:.2f} s), gband host "
+        f"build + sidecar write {t_build:.2f} s, sidecar load {t_side:.2f} s, tables to the card {t_h2d:.2f} s")
+    del again, host, fresh
+
+    errs = []
+    # the CLI's read width (100 bp reads round up to L = 112), then the
+    # reference bench's L = 100 (scripts/bigindex.py: B = 65,536, Q1 = 14)
+    for max_len in (_round_len(READ_LEN), READ_LEN):
+        if eng is None:
+            eng = TE.AlignEngine(index, r.config, dev, chunk_size=None, max_len=max_len)
+        B, L = eng.chunk_size, eng.max_len
+        codes, lens = fastq_head(fq, B, L)
+        seen = []
+        orig = TE.band_tree_expand
+
+        def capture(tbl, idx_sel, has_sel, w, pw):
+            seen.append((idx_sel.clone(), has_sel.clone()))
+            return orig(tbl, idx_sel, has_sel, w, pw)
+
+        TE.band_tree_expand = capture
+        try:
+            eng.align_batch(codes, lens)
+        finally:
+            TE.band_tree_expand = orig
+        idx_sel, has_sel = seen[0]
+        label = "main path" if max_len != READ_LEN else "L=100 (the reference bench's width)"
+        say("kernel", f"band_tree_expand {label} arguments (20k library): B={B} L={L} "
+            f"Q1={idx_sel.shape[1]} W={W} Pw={Pw}")
+        errs.append(check_band(label, table, idx_sel, has_sel, W, Pw)[0])
+        t_ms = cuda_ms(lambda: K.band_tree_expand(table, idx_sel, has_sel, W, Pw))
+        t_plain = cuda_ms(lambda: K.band_tree_expand_reference(table, idx_sel, has_sel, W, Pw))
+        say("kernel", f"band_tree_expand {label}: kernel {t_ms:.4f} ms ({B * W * 4 / (t_ms * 1e-3) / 1e9:.1f} "
+            f"GB/s of outputs), plain {t_plain:.4f} ms (median of 25)")
+        if max_len != READ_LEN:
+            ms, plain_ms = t_ms, t_plain
+        eng = None
+        del seen, idx_sel, has_sel
+    del r, index, table, bucket
+    for i, (label, sB, sW, sPw, sQ1, miss) in enumerate(BAND_CASES):
+        t, ix, hs = band_case(sB, sW, sPw, sQ1, seed=i, miss=miss)
+        err, got = check_band(label, t, ix, hs, sW, sPw)
+        if got[:miss].any():
+            raise AssertionError(f"band_tree_expand {label}: reads without a row have bits")
+        errs.append(err)
+    torch.cuda.empty_cache()
+    return max(errs), ms, plain_ms
+
+
+def phase_wide_main(work: str, lib: str, fq: str, r1: str, r2: str):
+    """The gband path at real size. Returns the summed launch counts."""
+    cores = str(os.cpu_count() or 1)
+    d = os.path.join(work, "wide")
+    runs = [
+        drive("gband single-end reads (20k library)",
+              ["--reference", lib, "--output", os.path.join(d, "out_se.tsv"), "--input", fq, "-c", cores],
+              N_WIDE_READS, WIDE_KERNELS, lo=0.1),
+        drive("gband pairs (20k library, two FASTQs)",
+              ["--reference", lib, "--output", os.path.join(d, "out_pe.tsv"), "--input", r1, r2, "-c", cores],
+              N_WIDE_PAIRS, WIDE_KERNELS, lo=0.1),
+    ]
+    return {k: sum(r[2][k] for r in runs) for k in WIDE_KERNELS}
+
+
+def phase_wide_cmp(work: str, lib: str, cmp_fq: str):
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        outs[dev] = os.path.join(work, "wide", f"out_cmp_{dev}.tsv")
+        t0 = time.perf_counter()
+        cli(["align", "--reference", lib, "--output", outs[dev], "--input", cmp_fq, "--device", dev])
+        say("cmp", f"align (20k library, gband) --device {dev}: {time.perf_counter() - t0:.2f} s")
+    with open(outs["cuda"], "rb") as a, open(outs["cpu"], "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("align on the 20k library: --device cuda and --device cpu TSVs differ")
+    say("cmp", f"{N_WIDE_CMP} reads, 20k library: cuda and cpu TSVs byte-identical ({tsv_rows(outs['cuda'])} rows)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA card",
@@ -591,6 +889,8 @@ def main() -> int:
     name, _smi = phase_device()
     phase_build()
     with tempfile.TemporaryDirectory(prefix="nimble_smoke_") as work:
+        # the pipeline's stage log (index and engine build walls) for drive()
+        os.environ["NIMBLE_TPU_RUNLOG"] = os.path.join(work, "runlog.jsonl")
         lib, fq = phase_data(work)
         kk_err, kk_ms, kk_plain = phase_kernel(main_path_shape(lib))
         phase_goldens(work)
@@ -599,6 +899,10 @@ def main() -> int:
         mp_err, mp_ms, mp_plain = phase_mono_kernel(lib, fq, nm1_lib, nm1_fq)
         mono_counts = phase_mono_main(work, lib, fq, bam, nm1_lib, nm1_fq)
         phase_cuda_vs_cpu(work)
+        wlib, wfq, wcmp, wr1, wr2 = phase_wide_data(work)
+        bt_err, bt_ms, bt_plain = phase_wide_kernel(wlib, wfq)
+        wide_counts = phase_wide_main(work, wlib, wfq, wr1, wr2)
+        phase_wide_cmp(work, wlib, wcmp)
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {
@@ -606,7 +910,7 @@ def main() -> int:
             "route": "cuda",
             "source": "nimble_tpu_torch/csrc/kmer_keys.cu",
             "replaces": "nimble_tpu/align/kernels.py:157",
-            "launches": group_counts["kmer_keys"] + mono_counts["kmer_keys"],
+            "launches": group_counts["kmer_keys"] + mono_counts["kmer_keys"] + wide_counts["kmer_keys"],
             "max_abs_err": kk_err,
             "ms": kk_ms,
             "plain_ms": kk_plain,
@@ -620,6 +924,16 @@ def main() -> int:
             "max_abs_err": mp_err,
             "ms": mp_ms,
             "plain_ms": mp_plain,
+        },
+        {
+            "name": "band_tree_expand",
+            "route": "cuda",
+            "source": "nimble_tpu_torch/csrc/band_tree_expand.cu",
+            "replaces": "nimble_tpu/align/kernels.py:394",
+            "launches": wide_counts["band_tree_expand"],
+            "max_abs_err": bt_err,
+            "ms": bt_ms,
+            "plain_ms": bt_plain,
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

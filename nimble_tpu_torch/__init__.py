@@ -8,22 +8,27 @@ package imports `torch` and never `jax`. Host code that imports no jax
 host code that lives behind `nimble_tpu/align/__init__.py` (which imports
 the JAX engine) is copied here.
 
-Ported slice: `align` against narrow libraries (W <= 16 bitset words, up
-to 512 features), single-end and paired, FASTQ and tagged BAM, on the
-default group probe (g = 6, W <= 8) and on the mono probe (`--probe mono`,
+Ported slice: `align`, single-end and paired, FASTQ and tagged BAM, on
+narrow libraries (W <= 16 bitset words, up to 512 features) on the default
+group probe (g = 6, W <= 8) and on the mono probe (`--probe mono`,
 `num_mismatches` 1-2, `kmer_stride > 1`, 8 < W <= 16, reads shorter than
-k+g-1), with the two-choice inline probe as the mono path's fallback. Two
-hand-written CUDA kernels run on the card — the window stage
-(csrc/kmer_keys.cu) and the fused mono probe (csrc/mono_probe.cu) — and
-their plain torch versions on the CPU.
+k+g-1), with the two-choice inline probe as the mono path's fallback; and
+on wide libraries (W > 16) that can be banded, on the banded group path
+(gband). Three hand-written CUDA kernels run on the card — the window stage
+(csrc/kmer_keys.cu), the fused mono probe (csrc/mono_probe.cu) and the
+gband band-row intersection (csrc/band_tree_expand.cu) — and their plain
+torch versions on the CPU.
 
 Modules (named after their reference counterparts):
   nimble_tpu_torch.device          — explicit device resolution
+  nimble_tpu_torch.native_build    — builds the shared native host library
   nimble_tpu_torch.index.hashing   — bucket hashes on int64 tensors
-  nimble_tpu_torch.align.tables    — group, mono and two-choice device tables
-  nimble_tpu_torch.align.kernels   — kmer_keys, mono_probe: CUDA kernels +
-                                     plain torch versions
-  nimble_tpu_torch.align.engine    — the narrow align steps and engine
+  nimble_tpu_torch.align.tables    — group, gband, mono and two-choice
+                                     device tables
+  nimble_tpu_torch.align.kernels   — kmer_keys, mono_probe,
+                                     band_tree_expand: CUDA kernels + plain
+                                     torch versions
+  nimble_tpu_torch.align.engine    — the align steps, output wires, engine
   nimble_tpu_torch.align.host_probe— host mono repair for short reads
   nimble_tpu_torch.align.pipeline  — the `align` orchestration
 """

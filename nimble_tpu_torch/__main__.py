@@ -17,6 +17,17 @@ def _unported(msg: str) -> int:
     return 2
 
 
+def _ensure_native() -> None:
+    """Build the shared native host library before its loader looks; say
+    so on stderr when no compiler can."""
+    from nimble_tpu_torch.native_build import build_native
+
+    ok, how = build_native()
+    if not ok:
+        print(f"nimble_tpu_torch: the native host library is unavailable ({how}); host IO "
+              "runs the slower python readers, the output is the same", file=sys.stderr)
+
+
 def main(argv=None) -> int:
     from nimble_tpu_torch import __version__
     from nimble_tpu_torch.device import DEVICES
@@ -112,6 +123,8 @@ def main(argv=None) -> int:
 
     args = parser.parse_args(argv)
 
+    if args.subcommand in ("align", "index", "fastq-to-bam", "report"):
+        _ensure_native()
     if args.subcommand == "download":
         print("nimble_tpu_torch's aligner is built in; nothing to download.")
         return 0

@@ -1,4 +1,4 @@
-"""The hand-written kernels of the narrow align paths and their plain torch
+"""The hand-written kernels of the align paths and their plain torch
 versions.
 
 `kmer_keys(codes, lens, k, n_buckets)` returns the seven (B, P = L-k+1)
@@ -11,14 +11,21 @@ mono_probe: the mono-table row gather, slot select, stash sweep and
 orientation select that the reference splits between XLA and
 kernels.py:mono_select_pallas.
 
+`band_tree_expand(gband_table, idx_sel, has_sel, W, Pw)` returns the (B, W)
+bits of the wide gband path: the band-row gather of
+nimble_tpu/align/engine.py:_score_mate_groupband followed by what
+kernels.py:band_tree_expand_pallas computes — the AND of each read's
+page-banded rows and its expansion to W words.
+
 On CUDA tensors each wrapper launches its hand-written sm_90a kernel
-(csrc/kmer_keys.cu, csrc/mono_probe.cu), built with nvcc at first use into
-_build/ and bound with ctypes (a plain C interface, so the build takes
-seconds, not the minutes a build against PyTorch's headers takes). On CPU
-tensors it runs the plain torch version (`kmer_keys_reference`,
-`mono_probe_reference`). Nothing falls back from one to the other: a CUDA
-launch either succeeds or raises. Each wrapper counts its kernel launches
-in `<wrapper>.launches`.
+(csrc/kmer_keys.cu, csrc/mono_probe.cu, csrc/band_tree_expand.cu), built
+with nvcc at first use into _build/ and bound with ctypes (a plain C
+interface, so the build takes seconds, not the minutes a build against
+PyTorch's headers takes). On CPU tensors it runs the plain torch version
+(`kmer_keys_reference`, `mono_probe_reference`,
+`band_tree_expand_reference`). Nothing falls back from one to the other: a
+CUDA launch either succeeds or raises. Each wrapper counts its kernel
+launches in `<wrapper>.launches`.
 """
 from __future__ import annotations
 
@@ -207,6 +214,15 @@ def _load():
                 ctypes.c_void_p, ctypes.c_void_p,  # bits_f, bits_r
                 ctypes.c_void_p,  # stream
             ]
+            lib.nt_band_tree_expand.restype = ctypes.c_int
+            lib.nt_band_tree_expand.argtypes = [
+                ctypes.c_int,  # device
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,  # table, n_rows, Pw
+                ctypes.c_void_p, ctypes.c_void_p,  # idx_sel, has_sel
+                ctypes.c_int64, ctypes.c_int, ctypes.c_int,  # B, Q1, W
+                ctypes.c_void_p,  # out
+                ctypes.c_void_p,  # stream
+            ]
             _lib = lib
     return _lib
 
@@ -341,3 +357,126 @@ def mono_probe(bucket: torch.Tensor, h1: torch.Tensor, hi_i: torch.Tensor,
 
 
 mono_probe.launches = 0
+
+# warps (reads) per block of the band_tree_expand kernel, each with a
+# 2 Pw-word accumulator in shared memory; the smem cap is the H100's
+BAND_TREE_WARPS = 8
+BAND_TREE_MAX_SMEM = 227 * 1024
+
+
+def band_combine(p1, b1, h1, p2, b2, h2, Pw: int):
+    """engine.py:_band_combine — AND of two page-banded values (page (..,),
+    band (.., 2 Pw), has (..,)) in the frame of the higher page: pages that
+    differ by one align their overlapping page, a larger gap gives an empty
+    band. A side without `has` contributes nothing."""
+    zeros = torch.zeros_like(b1[..., :Pw])
+    up1 = torch.cat([b1[..., Pw:], zeros], dim=-1)
+    up2 = torch.cat([b2[..., Pw:], zeros], dim=-1)
+    d = p2 - p1
+    zero = torch.zeros((), dtype=b1.dtype, device=b1.device)
+    nb = torch.where((d == 0)[..., None], b1 & b2, zero)
+    nb = torch.where((d == 1)[..., None], up1 & b2, nb)
+    nb = torch.where((d == -1)[..., None], b1 & up2, nb)
+    both = h1 & h2
+    band = torch.where(both[..., None], nb, torch.where(h1[..., None], b1, b2))
+    page = torch.where(both, torch.maximum(p1, p2), torch.where(h1, p1, p2))
+    return page, band, h1 | h2
+
+
+def band_tree(page, band, has, Pw: int):
+    """engine.py:_band_tree — halving-tree reduce of (B, n, ...) banded
+    values over axis 1, the odd leftover folded into slot 0."""
+    n = page.shape[1]
+    while n > 1:
+        half = n // 2
+        pg, bd, hs = band_combine(
+            page[:, :half], band[:, :half], has[:, :half],
+            page[:, half : 2 * half], band[:, half : 2 * half], has[:, half : 2 * half], Pw,
+        )
+        if n % 2:
+            p0, b0, h0 = band_combine(pg[:, :1], bd[:, :1], hs[:, :1],
+                                      page[:, -1:], band[:, -1:], has[:, -1:], Pw)
+            pg = torch.cat([p0, pg[:, 1:]], dim=1)
+            bd = torch.cat([b0, bd[:, 1:]], dim=1)
+            hs = torch.cat([h0, hs[:, 1:]], dim=1)
+        page, band, has = pg, bd, hs
+        n = half
+    return page[:, 0], band[:, 0], has[:, 0]
+
+
+def expand_band(page, band, has, W: int, Pw: int):
+    """engine.py:_expand_band — (B,) pages and (B, 2 Pw) bands -> (B, W)
+    bitsets: output page p holds the band's lower half where page == p and
+    its upper half where page == p - 1; rows without `has` are zero."""
+    n_pages = -(-W // Pw) + 1
+    zero = torch.zeros((), dtype=band.dtype, device=band.device)
+    lo, hi = band[:, :Pw], band[:, Pw:]
+    parts = []
+    for pg in range(n_pages):
+        seg = torch.where((page == pg)[:, None], lo, zero)
+        if pg > 0:
+            seg = seg | torch.where((page == pg - 1)[:, None], hi, zero)
+        parts.append(seg)
+    out = torch.cat(parts, dim=1)[:, :W]
+    return torch.where(has[:, None], out, zero)
+
+
+def band_tree_expand_reference(gband_table: torch.Tensor, idx_sel: torch.Tensor,
+                               has_sel: torch.Tensor, W: int, Pw: int) -> torch.Tensor:
+    """The plain torch version of the kernel: the (B, Q1, 1 + 2 Pw) row
+    gather of engine.py:_score_mate_groupband's XLA branch (indices clamped
+    into the table, as a jnp gather clamps them), then band_tree and
+    expand_band."""
+    idx = idx_sel.long().clamp(0, gband_table.shape[0] - 1)
+    brow = gband_table[idx]
+    page, band, has = band_tree(brow[..., 0], brow[..., 1:], has_sel, Pw)
+    return expand_band(page, band, has, W, Pw)
+
+
+def band_tree_expand(gband_table: torch.Tensor, idx_sel: torch.Tensor,
+                     has_sel: torch.Tensor, W: int, Pw: int) -> torch.Tensor:
+    """The fused band gather + intersection + expansion of the gband path.
+    gband_table (n_rows, 1 + 2 Pw) int32 rows [page | band]; idx_sel (B, Q1)
+    int32 row index per probe position (any value where has_sel is False);
+    has_sel (B, Q1) bool -> bits (B, W) int32. Pw is a multiple of 8 with
+    3 Pw <= W, as the table builder makes it. Every tensor must be
+    contiguous and on one device."""
+    if Pw < 8 or Pw % 8 or 3 * Pw > W:
+        raise ValueError(f"Pw must be a multiple of 8 with 3 * Pw <= W, got Pw={Pw} W={W}")
+    E = 1 + 2 * Pw
+    if (gband_table.dim() != 2 or gband_table.dtype != torch.int32
+            or gband_table.shape[1] != E or gband_table.shape[0] < 1):
+        raise ValueError(f"gband_table must be (n_rows >= 1, {E}) int32, got "
+                         f"{tuple(gband_table.shape)} {gband_table.dtype}")
+    if idx_sel.dim() != 2 or idx_sel.dtype != torch.int32:
+        raise ValueError(f"idx_sel must be (B, Q1) int32, got {tuple(idx_sel.shape)} {idx_sel.dtype}")
+    if has_sel.dtype != torch.bool or has_sel.shape != idx_sel.shape:
+        raise ValueError(f"has_sel must be {tuple(idx_sel.shape)} bool, got "
+                         f"{tuple(has_sel.shape)} {has_sel.dtype}")
+    tensors = (gband_table, idx_sel, has_sel)
+    dev = gband_table.device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"band_tree_expand needs every tensor on one device, got {[str(t.device) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("band_tree_expand needs contiguous tensors")
+    if dev.type == "cpu":
+        return band_tree_expand_reference(gband_table, idx_sel, has_sel, W, Pw)
+    if dev.type != "cuda":
+        raise ValueError(f"band_tree_expand runs on cuda or cpu tensors, got {dev}")
+    if BAND_TREE_WARPS * 2 * Pw * 4 > BAND_TREE_MAX_SMEM:
+        raise ValueError(f"Pw={Pw} needs more shared memory than a block has")
+    lib = _load()
+    B, Q1 = idx_sel.shape
+    out = torch.empty((B, W), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.nt_band_tree_expand(
+        _device_index(dev), gband_table.data_ptr(), gband_table.shape[0], Pw,
+        idx_sel.data_ptr(), has_sel.data_ptr(), B, Q1, W, out.data_ptr(), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"band_tree_expand kernel launch failed: cudaError {err}")
+    band_tree_expand.launches += 1
+    return out
+
+
+band_tree_expand.launches = 0

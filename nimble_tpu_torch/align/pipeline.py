@@ -2,9 +2,10 @@
 several libraries.
 
 Copied from nimble_tpu/align/pipeline.py (which cannot be imported without
-jax) with what the narrow group and mono paths need, and driving the torch
+jax) with what the group, gband and mono paths need, and driving the torch
 engine on an explicit device. The TSV schema, set-size filters, group_on
-collapse, trimming, `--probe` and the group path's short-read repair are the
+collapse, trimming, `--probe`, the group paths' short-read repair and the
+three emission routes (dense bits, gband band rows, idlist ids) are the
 reference's own, so the output is byte-identical.
 
 The port runs one process on one device. It refuses the reference's
@@ -27,7 +28,7 @@ import torch
 
 from nimble_tpu.config import Config, load_library
 from nimble_tpu.index.builder import KmerIndex, build_index_for_library
-from nimble_tpu_torch.align.engine import AlignEngine
+from nimble_tpu_torch.align.engine import AlignEngine, expand_band_rows_np, ids_to_bits_np
 
 TSV_HEADER = [
     "nimble_features",
@@ -154,6 +155,33 @@ def _resolve_classes_from_cols(
     return u_features, u_keep, inverse
 
 
+def resolve_features_band(index: KmerIndex, band_rows: np.ndarray, Pw: int, emit: EmitConfig):
+    """pipeline.py:resolve_features_band — resolve_features_compact over
+    (n, 1 + 2 Pw) band rows [page | band] without expanding them to W
+    words: feature id = page * Pw * 32 + the bit's position in the band."""
+    uniq, inverse = _unique_rows(band_rows)
+    u = uniq.shape[0]
+    u8 = np.ascontiguousarray(uniq[:, 1:], dtype="<i4").view(np.uint8)
+    expanded = np.unpackbits(u8.reshape(u, -1), axis=1, bitorder="little")
+    rows, bitpos = np.nonzero(expanded)
+    cols = (uniq[rows, 0].astype(np.int64) * (Pw * 32) + bitpos).astype(np.int32)
+    tail = cols >= index.n_features  # last-word padding bits, if any
+    if tail.any():
+        rows, cols = rows[~tail], cols[~tail]
+    return _resolve_classes_from_cols(index, u, rows, cols, emit, inverse)
+
+
+def resolve_features_ids(index: KmerIndex, ids: np.ndarray, emit: EmitConfig):
+    """pipeline.py:resolve_features_ids — resolve_features_compact over the
+    idlist wire's (n, cap) feature-id rows, -1 padded: unique the id rows
+    and hand their ids straight to the class resolver, no bitset decode."""
+    uniq, inverse = _unique_rows(ids)
+    present = (uniq >= 0) & (uniq < index.n_features)  # guard stray ids
+    rows, _ = np.nonzero(present)
+    cols = uniq[present].astype(np.int32)
+    return _resolve_classes_from_cols(index, uniq.shape[0], rows, cols, emit, inverse)
+
+
 def _lex_tables(index: KmerIndex, group_on: bool, names):
     """Cached per-index lex-order tables for native class resolution:
     (lexrank: id -> lex position, concatenated lex-ordered name bytes,
@@ -232,9 +260,16 @@ class LibraryRunner:
         if out is None:
             return 0
         pass_ = out["pass_"]
-        u_features, u_keep, inverse = resolve_features_compact(
-            self.index, out["bits"], self.emit
-        )
+        if out.get("ids") is not None:
+            u_features, u_keep, inverse = resolve_features_ids(self.index, out["ids"], self.emit)
+        elif out.get("band_rows") is not None:
+            u_features, u_keep, inverse = resolve_features_band(
+                self.index, out["band_rows"], out["band_meta"][0], self.emit
+            )
+        else:
+            u_features, u_keep, inverse = resolve_features_compact(
+                self.index, out["bits"], self.emit
+            )
         keep = u_keep[inverse] & pass_
         n_kept = int(np.count_nonzero(keep))
         if n_kept == 0:
@@ -637,6 +672,13 @@ def align_files(
                 l2 is None or int(l2.min(initial=1 << 30)) >= min_len
             ):
                 return  # fast path: no short reads in this span
+            # rare: short reads in a gband span — densify, so the repair
+            # writes mono rows in place
+            if out.get("band_rows") is not None:
+                Pw, W = out.pop("band_meta")
+                out["bits"] = expand_band_rows_np(out.pop("band_rows"), Pw, W)
+            elif out.get("ids") is not None:
+                out["bits"] = ids_to_bits_np(out.pop("ids"), r.index.bitset_words)
             prober = getattr(r, "_short_prober", None)
             if prober is None:
                 prober = HostMonoProber(r.index, r.config, strand_filter)

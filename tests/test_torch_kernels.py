@@ -165,6 +165,29 @@ def test_mono_probe_rejects_bad_arguments(mutate, err):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B, W, Pw, Q1", [(65536, 625, 32, 14), (1001, 100, 16, 7), (70, 70, 8, 5),
+                                          (333, 625, 24, 40)])
+def test_cuda_band_tree_expand_matches_plain_version(B, W, Pw, Q1):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    rng = np.random.default_rng(B)
+    n_rows = 4096
+    table = rng.integers(-(1 << 31), 1 << 31, size=(n_rows, 1 + 2 * Pw), dtype=np.int64).astype(np.int32)
+    table[:, 0] = rng.integers(0, -(-W // Pw), size=n_rows)
+    base = rng.integers(0, n_rows - 4, size=(B, 1))
+    idx = (base + rng.integers(0, 4, size=(B, Q1))).astype(np.int32)  # neighbouring rows
+    has = rng.random((B, Q1)) < 0.7
+    has[:3] = False
+    args = [torch.from_numpy(a).cuda() for a in (table, idx, has)]
+    before = K.band_tree_expand.launches
+    got = K.band_tree_expand(*args, W, Pw)
+    want = K.band_tree_expand_reference(*args, W, Pw)
+    torch.cuda.synchronize()
+    assert K.band_tree_expand.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B, P, W, S, n_stash", [(1001, 92, 4, 4, 3), (333, 40, 16, 4, 64), (77, 30, 5, 2, 0)])
 def test_cuda_mono_probe_matches_plain_version(B, P, W, S, n_stash):
     if not torch.cuda.is_available():

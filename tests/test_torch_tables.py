@@ -73,7 +73,9 @@ def test_tables_from_reference_carries_group_entries():
 
 def test_device_tables_refuse_what_the_group_path_cannot_take():
     """A mono index (no group entries) or group_ok=False gets the mono
-    table, as the reference's _device_tables gives it; W > 16 raises."""
+    table, as the reference's _device_tables gives it; a W > 16 library the
+    reference takes to its groupcls path (unbanded) raises, naming the
+    ROADMAP item."""
     index = _golden_index()
     config, data = load_library(str(GOLD / "lib_base.json"))
     mono = build_index(data, config, group_g=0)
@@ -83,5 +85,5 @@ def test_device_tables_refuse_what_the_group_path_cannot_take():
     assert set(device_tables(index, cpu)) == set(GROUP_KEYS)
     wide = _synthetic_index(n_seqs=600, length=60)
     assert wide.bitset_words > 16
-    with pytest.raises(ValueError, match="wider than the inline paths"):
+    with pytest.raises(NotImplementedError, match="groupcls.*Queue 1 item 10"):
         device_tables(wide, cpu)
