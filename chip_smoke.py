@@ -11,45 +11,58 @@ kernels:
      library (native/), built with the first compiler that can
      (nimble_tpu_torch/native_build.py, as the port's CLI builds it);
   2. kernel build: nvcc of nimble_tpu_torch/csrc/*.cu, one process per
-     source, all started together;
+     source, all started together; each kernel's registers and static
+     shared memory as ptxas reports them;
   3. kmer_keys kernel == its plain torch version on all 7 planes, exactly,
-     at the arguments the group path passes it (read from the engine that
-     `align` builds for the HLA-100 workload) and at edge shapes; both
-     timed with CUDA events;
+     at the arguments the group path passes it (captured from the engine
+     that `align` builds for the HLA-100 workload, on the first chunk of its
+     reads), on random codes at that shape, at every k in {1, 2, 16, 21,
+     26, 31} with L in {k, 40, 100, 112, 150, 301}, and on rows at odd
+     addresses; codes outside 0-4 and lens below k included;
   4. the 18 align goldens of tests/goldens/, byte-identical on cuda (15 on
      the group path, 3 on the mono path);
   5. the group path at real size: HLA-100 library, 2,097,152 single-end
-     100 bp reads (scripts/make_bench_fastq.py), then 262,144 10x-shaped
+     100 bp reads (nimble_tpu_torch/bench_data.py), then 262,144 10x-shaped
      pairs through fastq-to-bam -> align -> report;
   6. mono_probe kernel == its plain torch version on both outputs, exactly,
      at the arguments the mono path passes it for HLA-100 under
      `--probe mono`, at the 16.7M-bucket table of HLA-100 under
      `num_mismatches = 1`, at B*P not a multiple of the block, at W = 16
      (a 500-feature library), with a full 64-row stash, and on synthetic
-     tables with random orientation flags (palindromes, S != 4); timed
-     with CUDA events at the main-path shape and at the large table;
+     tables with random orientation flags (palindromes, S != 4); the
+     engine build's slot-major re-lay of the large table timed (the
+     pipeline's stage log);
   7. the mono path at real size: the same 2,097,152 reads and 262,144 BAM
      pairs under `--probe mono`, and 524,288 reads of the same generator
      against HLA-100 with `num_mismatches = 1`;
   8. the same 65,536 reads through `align --device cuda` and `--device cpu`
      give byte-identical TSVs, on the group probe and on `--probe mono`;
-  9. the wide workload: the 20k-allele library of scripts/bigindex.py (20
-     families x 1,000 alleles x 3 kb, 25 SNPs each: 20,000 features,
-     W = 625 words), its index (C++ builder), 1,048,576 single-end 100 bp
-     reads and 262,144 pairs (two FASTQs, both mates from one fragment of
-     one allele), 1% substitutions; the engine build timed by part (index
-     load, gband host build + sidecar write, sidecar load, copy to the
-     card);
+  9. the wide workload (bench_data.write_wide): the 20k-allele library of
+     scripts/bigindex.py (20 families x 1,000 alleles x 3 kb, 25 SNPs each:
+     20,000 features, W = 625 words), its index (C++ builder), 1,048,576
+     single-end 100 bp reads and 262,144 pairs (two FASTQs, both mates from
+     one fragment of one allele), 1% substitutions; the engine build timed
+     by part (index load, gband host build + sidecar write, sidecar load,
+     copy to the card);
  10. band_tree_expand kernel == its plain torch version, exactly, on the
      (idx_sel, has_sel) the gband step passes it for real reads at the
      main-path shape (the engine `align` builds: L = 112, W = 625,
      Pw = 32) and at the reference bench's L = 100, and on synthetic
      tables (B not a multiple of the block, (W, Pw, Q1) = (100, 16, 7) and
      (70, 8, 5), Pw != 32, Q1 = 40, all-miss reads, out-of-range indices
-     where no position contributes); timed with CUDA events;
+     where no position contributes);
  11. the gband path at real size: the single-end and paired runs;
  12. 16,384 of those reads through `align --device cuda` and `--device
      cpu` give byte-identical TSVs on the gband path.
+
+Each kernel is timed at its main-path arguments, captured from the
+engine's align_batch on the first chunk of the workload's reads
+(kernel_bench.captured): its time on the card is
+that of one launch replayed from a CUDA graph, back to back with others,
+median of 25 (nimble_tpu_torch/kernel_bench.py). Printed beside it: one
+wrapper call timed with CUDA events (the host's launch latency included),
+the plain version's time, the bytes the call must move, its bound at
+3.35 TB/s and the share of the bound it reaches.
 
 Each main-path run zeroes the kernels' launch counts just before it and
 reads them just after; the run fails unless every kernel of its path ran.
@@ -60,18 +73,20 @@ Any failure raises (exit code != 0). The second-to-last line is a JSON
 record of the kernels; the last line is
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
-Of the JAX package it imports only jax-free shared host modules
-(nimble_tpu.io, .config, .index.builder, ...), as the port itself does;
-jax is made unimportable before anything else is imported.
+It imports nothing of the JAX package (nimble_tpu) and no jax: both are
+made unimportable before anything else is imported. Its workloads come
+from the port's own generator (nimble_tpu_torch/bench_data.py).
 
 Usage: python3 chip_smoke.py   (from the repository root; needs one card)
 """
 import sys
 
 sys.modules["jax"] = None  # the port must never import jax: any attempt raises here
+sys.modules["nimble_tpu"] = None  # nor the JAX package
 
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -91,20 +106,15 @@ FLAG_CASES = {
 }
 SINGLE_END_CASES = {"strand_fiveprime"}
 
-READ_LEN = 100  # scripts/make_bench_fastq.py's read length
+READ_LEN = 100  # the bench reads' length (nimble_tpu_torch/bench_data.py)
 N_READS = 2_097_152
 N_PAIRS = 262_144
 N_CMP_READS = 65_536
 N_NM1_READS = 524_288
 MONO = ["--probe", "mono"]
 
-# the 20k-allele HLA/KIR library of scripts/bigindex.py (published shape,
-# not cut) and its reads; the reads are cut from the reference's 2M
-WIDE_FAMILIES = 20
-WIDE_ALLELES = 1000
-WIDE_LEN = 3000
-WIDE_SNPS = 25
-WIDE_ERROR = 0.01
+# the 20k-allele HLA/KIR library's reads (bench_data.write_wide); cut from
+# the reference's 2M
 N_WIDE_READS = 1_048_576
 N_WIDE_PAIRS = 262_144
 N_WIDE_CMP = 16_384
@@ -113,14 +123,6 @@ WIDE_KERNELS = ["kmer_keys", "band_tree_expand"]
 
 def say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
-
-
-def run(cmd, **kw):
-    """Run a subprocess to its end; raise on a nonzero exit."""
-    res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, **kw)
-    if res.returncode != 0:
-        raise RuntimeError(f"{cmd} exited {res.returncode}:\n{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
-    return res.stdout
 
 
 def cli(args):
@@ -164,8 +166,8 @@ def phase_device():
         f"devices {torch.cuda.device_count()} | host cores {os.cpu_count()}")
     from nimble_tpu_torch.native_build import build_native
 
-    _ok, how = build_native()  # before the shared loader first looks
-    from nimble_tpu.io import native
+    _ok, how = build_native()  # before the native loader first looks
+    from nimble_tpu_torch.io import native
 
     native_ok = native.available()
     if not native_ok:
@@ -181,16 +183,31 @@ def phase_build():
     path = K.build()
     srcs = sorted(f for f in os.listdir(K.CSRC) if f.endswith(".cu"))
     say("build", f"kernel library ({', '.join(srcs)}) built in {time.perf_counter() - t0:.2f} s: {path}")
+    # ptxas -v of each kernel: registers, spills, static shared memory (the
+    # kmer_keys packed arrays; the mono_probe stash is dynamic, per launch)
+    log = path + ".ptxas.txt"
+    if os.path.exists(log):
+        src, entry = "", ""
+        with open(log) as f:
+            for ln in f:
+                if ln.startswith("== "):
+                    src = ln[3:].strip()
+                elif "Compiling entry function" in ln:
+                    entry = ln.split("'")[1]
+                elif "Used" in ln and "registers" in ln:
+                    m = re.search(r"ILb(\d)ELb(\d)E", entry)
+                    kind = f" <vkeys={m.group(1)}, vvals={m.group(2)}>" if m else ""
+                    say("build", f"{src}{kind}: {ln.split(':', 1)[1].strip()}")
 
 
 def phase_data(work: str):
     """The main path's workload: the HLA-100 library, its index and the
     single-end reads."""
+    from nimble_tpu_torch import bench_data
+
     se = os.path.join(work, "se")
     t0 = time.perf_counter()
-    run([sys.executable, "scripts/make_bench_fastq.py", se, str(N_READS)])
-    lib = os.path.join(se, "hla100.json")
-    fq = os.path.join(se, f"reads_{N_READS}.fastq.gz")
+    lib, fq = bench_data.write_single(se, N_READS)
     say("data", f"generated HLA-100 + {N_READS} reads in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     cli(["index", "--reference", lib])
@@ -198,59 +215,98 @@ def phase_data(work: str):
     return lib, fq
 
 
-def main_path_shape(lib: str):
-    """(B, L, k, n_buckets) that the main path's align passes to kmer_keys:
-    the engine that `align` builds for this library and 100 bp reads."""
-    from nimble_tpu_torch.align.engine import AlignEngine
-    from nimble_tpu_torch.align.pipeline import _round_len, make_runner
-
-    r = make_runner(lib, os.devnull)
-    eng = AlignEngine(r.index, r.config, torch.device("cuda"), chunk_size=None,
-                      max_len=_round_len(READ_LEN), paired=False)
-    return (eng.chunk_size, eng.max_len, eng.params.k + eng.params.group_g - 1,
-            eng.tables["group_bucket"].shape[0])
+def stage_wall(name: str) -> float:
+    """The wall of the last `name` stage in the pipeline's stage log."""
+    with open(os.environ["NIMBLE_TPU_RUNLOG"]) as f:
+        ends = [e for e in map(json.loads, filter(str.strip, f))
+                if e["event"] == "stage_end" and e["stage"] == name]
+    if not ends:
+        raise AssertionError(f"the stage log holds no {name} stage")
+    return ends[-1]["wall_s"]
 
 
-def phase_kernel(main_shape):
+# kmer_keys shapes beyond the main path's: every k the wrapper takes at its
+# ends and in between, reads as short as k, widths that are not a multiple
+# of 16 (narrower loads) and reads longer than one 256-code segment
+KMER_KS = (1, 2, 16, 21, 26, 31)
+KMER_LS = ("k", 40, 100, 112, 150, 301)
+
+
+def check_kmer(label: str, c, ln, k: int, n_buckets: int) -> int:
+    """kmer_keys == kmer_keys_reference on all 7 planes, exactly."""
+    from nimble_tpu_torch.align import kernels as K
+
+    names = ("c_hi", "c_lo", "h1", "h2", "fwd_canon", "palindrome", "valid")
+    got = K.kmer_keys(c, ln, k, n_buckets)
+    want = K.kmer_keys_reference(c, ln, k, n_buckets)
+    torch.cuda.synchronize()
+    max_err = 0
+    for nm, a, b in zip(names, got, want):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"kmer_keys {nm} {a.dtype}{tuple(a.shape)} != twin {b.dtype}{tuple(b.shape)}")
+        err = int((a.long() - b.long()).abs().max()) if a.numel() else 0
+        max_err = max(max_err, err)
+        if err:
+            raise AssertionError(f"kmer_keys != twin on {nm} at {label} (max |diff| {err})")
+    return max_err
+
+
+def kmer_codes(rng, B: int, L: int, dev):
+    """Random codes with 1% N bases and 1% codes outside 0-4 (a base is
+    code & 3, only 4 is N); lens from 0 to L, half of them L."""
+    codes = rng.integers(0, 4, size=(B, L)).astype(np.int8)
+    codes[rng.random((B, L)) < 0.01] = 4
+    odd = rng.random((B, L)) < 0.01
+    codes[odd] = rng.choice(np.array([-128, -4, -1, 5, 7, 127], np.int8), size=int(odd.sum()))
+    lens = rng.integers(0, L + 1, size=B).astype(np.int32)
+    lens[: B // 2] = L
+    return torch.from_numpy(codes).to(dev), torch.from_numpy(lens).to(dev)
+
+
+def phase_kernel(lib: str, fq: str):
+    """kmer_keys against its plain version at the arguments the group path
+    passes it for the first chunk of the bench reads, on random codes at
+    that shape and on the shape grid; timed at the main path's arguments."""
+    from nimble_tpu_torch import kernel_bench as KB
     from nimble_tpu_torch.align import kernels as K
 
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
-    MAIN_B, MAIN_L, MAIN_K, N_BUCKETS = main_shape
-    say("kernel", f"main-path arguments: B={MAIN_B} L={MAIN_L} k={MAIN_K} n_buckets={N_BUCKETS}")
-    cases = [(MAIN_B, MAIN_L, MAIN_K), (4099, 112, 16), (4099, 112, 21), (4099, 112, 31),
-             (1001, 150, 26), (3, 40, 26)]
-    names = ("c_hi", "c_lo", "h1", "h2", "fwd_canon", "palindrome", "valid")
-    max_err = 0
-    main_inputs = None
-    for B, L, k in cases:
-        codes = rng.integers(0, 4, size=(B, L)).astype(np.int8)
-        codes[rng.random((B, L)) < 0.01] = 4  # N bases
-        lens = rng.integers(1, L + 1, size=B).astype(np.int32)  # some < k, most < L
-        lens[: B // 2] = L
-        c = torch.from_numpy(codes).to(dev)
-        ln = torch.from_numpy(lens).to(dev)
-        got = K.kmer_keys(c, ln, k, N_BUCKETS)
-        want = K.kmer_keys_reference(c, ln, k, N_BUCKETS)
-        torch.cuda.synchronize()
-        for nm, a, b in zip(names, got, want):
-            if a.dtype != b.dtype or a.shape != b.shape:
-                raise AssertionError(f"kmer_keys {nm} {a.dtype}{tuple(a.shape)} != twin {b.dtype}{tuple(b.shape)}")
-            err = int((a.long() - b.long()).abs().max()) if a.numel() else 0
-            max_err = max(max_err, err)
-            if err:
-                raise AssertionError(f"kmer_keys != twin on {nm} at B={B} L={L} k={k} (max |diff| {err})")
-        say("kernel", f"B={B} L={L} k={k}: all 7 planes equal the twin")
-        if (B, L, k) == (MAIN_B, MAIN_L, MAIN_K):
-            main_inputs = (c, ln)
-    c, ln = main_inputs
-    ms = cuda_ms(lambda: K.kmer_keys(c, ln, MAIN_K, N_BUCKETS))
-    plain_ms = cuda_ms(lambda: K.kmer_keys_reference(c, ln, MAIN_K, N_BUCKETS))
-    P = MAIN_L - MAIN_K + 1
-    gbs = MAIN_B * P * 19 / (ms * 1e-3) / 1e9
-    say("kernel", f"B={MAIN_B} L={MAIN_L} k={MAIN_K}: kernel {ms:.4f} ms (median of 25, "
-        f"{gbs:.1f} GB/s of outputs), twin {plain_ms:.4f} ms")
-    return max_err, ms, plain_ms
+    _, eng = KB.engine(lib)
+    args = KB.captured(eng, *KB.fastq_head(fq, eng.chunk_size, eng.max_len), "kmer_keys")
+    del eng
+    c, ln, MAIN_K, N_BUCKETS = args
+    MAIN_B, MAIN_L = c.shape
+    say("kernel", f"main-path arguments (align, HLA-100, the first chunk of the bench reads): B={MAIN_B} "
+        f"L={MAIN_L} k={MAIN_K} n_buckets={N_BUCKETS}")
+    max_err = check_kmer("the main path", *args)
+    rc, rl = kmer_codes(rng, MAIN_B, MAIN_L, dev)
+    max_err = max(max_err, check_kmer("random codes at the main-path shape", rc, rl, MAIN_K, N_BUCKETS))
+    say("kernel", f"B={MAIN_B} L={MAIN_L} k={MAIN_K}: all 7 planes equal the twin (the main path's "
+        "arguments, and random codes at that shape)")
+    n_grid = 0
+    for k in KMER_KS:
+        for L in KMER_LS:
+            L = k if L == "k" else L
+            gc, gl = kmer_codes(rng, 4099, L, dev)
+            max_err = max(max_err, check_kmer(f"B=4099 L={L} k={k}", gc, gl, k, 1 << 17))
+            n_grid += 1
+    # rows that start at odd addresses: a view one byte into a buffer
+    buf, _ = kmer_codes(rng, 1, 1001 * 113 + 1, dev)
+    odd = buf.view(-1)[1:].view(1001, 113)
+    max_err = max(max_err, check_kmer("odd row addresses", odd, torch.full((1001,), 113, dtype=torch.int32,
+                                                                         device=dev), 21, 1 << 10))
+    say("kernel", f"{n_grid} shapes (B=4099, k in {KMER_KS}, L in {KMER_LS}) and odd row addresses: "
+        "all 7 planes equal the twin")
+    ms = KB.device_ms(lambda: K.kmer_keys(*args))
+    call_ms = cuda_ms(lambda: K.kmer_keys(*args))
+    plain_ms = cuda_ms(lambda: K.kmer_keys_reference(*args))
+    n_bytes = KB.kernel_bytes("kmer_keys", args)
+    bound = KB.bound_ms(n_bytes)
+    say("kernel", f"kmer_keys B={MAIN_B} L={MAIN_L} k={MAIN_K}: kernel {ms:.4f} ms on the card (median of 25, "
+        f"CUDA graph), {n_bytes / 1e6:.1f} MB, bound {bound:.4f} ms, share {bound / ms:.3f}; one wrapper call "
+        f"{call_ms:.4f} ms (CUDA events, launch included); twin {plain_ms:.4f} ms")
+    return max_err, ms, plain_ms, bound
 
 
 def phase_goldens(work: str):
@@ -311,27 +367,29 @@ def drive(label: str, args, n: int, kernels, lo: float = 0.3):
     rows = tsv_rows(out)
     if not lo < rows / n <= 1.0:
         raise AssertionError(f"{label}: pass rate {rows / n:.4f} outside ({lo}, 1]")
+    relay = f", of it the mono table's re-lay {setup['mono_relayout']:.4f}" if "mono_relayout" in setup else ""
     say("main", f"{label}: {n} in {wall:.2f} s wall, {n / wall:,.0f}/s, pass rate {rows / n:.4f}, "
         f"launches {counts}; set-up {t_setup:.2f} s (index load {setup.get('index_build', 0.0):.2f}, "
-        f"engine build {setup.get('engine_build', 0.0):.2f}), after it {n / max(wall - t_setup, 1e-9):,.0f}/s")
+        f"engine build {setup.get('engine_build', 0.0):.2f}{relay}), after it "
+        f"{n / max(wall - t_setup, 1e-9):,.0f}/s")
     return wall, rows, counts
 
 
 def phase_main_path(work: str, name: str, lib: str, fq: str):
     """The group path at real size: single-end gz FASTQ, then tagged BAM
     pairs -> report. Returns the BAM path and the launch counts."""
+    from nimble_tpu_torch import bench_data
+
     cores = str(os.cpu_count() or 1)
     say("main", f"group path on {name}, -c {cores}")
     _, _, se = drive("group single-end reads", ["--reference", lib, "--output", os.path.join(work, "se", "out.tsv"),
                                                  "--input", fq, "-c", cores], N_READS, ["kmer_keys"])
 
     pe = os.path.join(work, "pe")
-    run([sys.executable, "scripts/make_paired_bench.py", pe, str(N_PAIRS)])
+    r1, r2, whitelist = bench_data.write_paired(pe, N_PAIRS)
     bam = os.path.join(pe, "tagged.bam")
     t0 = time.perf_counter()
-    cli(["fastq-to-bam", "--r1-fastq", os.path.join(pe, f"paired_r1_{N_PAIRS}.fastq.gz"),
-         "--r2-fastq", os.path.join(pe, f"paired_r2_{N_PAIRS}.fastq.gz"),
-         "--map", os.path.join(pe, "whitelist.txt"), "--output", bam, "-c", cores])
+    cli(["fastq-to-bam", "--r1-fastq", r1, "--r2-fastq", r2, "--map", whitelist, "--output", bam, "-c", cores])
     say("main", f"fastq-to-bam {N_PAIRS} pairs: {time.perf_counter() - t0:.2f} s")
     pout = os.path.join(pe, "out.tsv")
     _, _, pe_counts = drive("group BAM pairs", ["--reference", lib, "--output", pout, "--input", bam,
@@ -349,12 +407,14 @@ def phase_mono_data(work: str, lib: str):
     """The mono path's workloads: the HLA-100 mono index (`index --probe
     mono`), and HLA-100 with num_mismatches = 1 (a copy of hla100.json with
     that Config field changed) with 524,288 reads of the same generator."""
+    from nimble_tpu_torch import bench_data
+
     t0 = time.perf_counter()
     cli(["index", "--reference", lib, "--probe", "mono"])
     say("data", f"HLA-100 mono index built in {time.perf_counter() - t0:.2f} s")
     nm1 = os.path.join(work, "nm1")
-    run([sys.executable, "scripts/make_bench_fastq.py", nm1, str(N_NM1_READS)])
-    with open(os.path.join(nm1, "hla100.json")) as f:
+    nm1_src, nm1_fq = bench_data.write_single(nm1, N_NM1_READS)
+    with open(nm1_src) as f:
         config, data = json.load(f)
     config["num_mismatches"] = 1
     nm1_lib = os.path.join(nm1, "hla100_nm1.json")
@@ -363,43 +423,26 @@ def phase_mono_data(work: str, lib: str):
     t0 = time.perf_counter()
     cli(["index", "--reference", nm1_lib])
     say("data", f"HLA-100 num_mismatches=1 index built in {time.perf_counter() - t0:.2f} s")
-    return nm1_lib, os.path.join(nm1, f"reads_{N_NM1_READS}.fastq.gz")
+    return nm1_lib, nm1_fq
 
 
 def mono_engine(lib: str, group_g):
     """The engine that `align` builds for this library and 100 bp reads
     (single-end), on the mono path."""
-    from nimble_tpu_torch.align.engine import AlignEngine
-    from nimble_tpu_torch.align.pipeline import _round_len, make_runner
+    from nimble_tpu_torch import kernel_bench as KB
 
-    r = make_runner(lib, os.devnull, group_g=group_g)
-    eng = AlignEngine(r.index, r.config, torch.device("cuda"), chunk_size=None,
-                      max_len=_round_len(READ_LEN), paired=False)
+    _, eng = KB.engine(lib, group_g)
     if "mono_bucket" not in eng.tables or eng.params.group_g != 0:
         raise AssertionError(f"{lib}: the engine did not take the mono path ({sorted(eng.tables)})")
     return eng
 
 
-def fastq_head(fq: str, B: int, L: int):
-    """The first B reads of a gz FASTQ as host (codes, lens), width L."""
-    import gzip
-
-    from nimble_tpu import seq as seqmod
-
-    seqs = []
-    with gzip.open(fq, "rt") as f:
-        for i, line in enumerate(f):
-            if i % 4 == 1:
-                seqs.append(line.strip())
-                if len(seqs) == B:
-                    break
-    return seqmod.encode_batch(seqs, max_len=L)
-
-
 def fastq_codes(fq: str, B: int, L: int, seed: int):
     """The first B reads of a FASTQ as (codes, lens) on the card, with 1% of
     bases set to N and some reads cut short (under k and under L)."""
-    codes, lens = fastq_head(fq, B, L)
+    from nimble_tpu_torch import kernel_bench as KB
+
+    codes, lens = KB.fastq_head(fq, B, L)
     rng = np.random.default_rng(seed)
     codes[rng.random(codes.shape) < 0.01] = 4
     cut = rng.random(lens.shape[0]) < 0.05
@@ -425,10 +468,11 @@ def _full_stash(bucket, stash, planes, W: int):
         for s in range(S):
             if t[b, s] == qh and t[b, S + s] == ql and (qh, ql) not in keys:
                 keys.add((qh, ql))
-                moved.append(np.concatenate([[qh, ql], t[b, 2 * S + np.arange(2 * W) * S + s]]))
+                vals = 2 * S + 2 * W * s + np.arange(2 * W)  # slot-major on the card
+                moved.append(np.concatenate([[qh, ql], t[b, vals]]))
                 t[b, s] = -1
                 t[b, S + s] = 0
-                t[b, 2 * S + np.arange(2 * W) * S + s] = 0
+                t[b, vals] = 0
         if stash.shape[0] + len(moved) >= K.MONO_MAX_STASH:
             break
     new_stash = np.concatenate([stash.cpu().numpy(), np.array(moved, dtype=np.int32)])
@@ -439,9 +483,9 @@ def _full_stash(bucket, stash, planes, W: int):
 def w16_case(B: int, L: int):
     """A 500-feature library (W = 16 words, the widest the mono path takes):
     its mono tables on the card and B reads drawn from it."""
-    from nimble_tpu import seq as seqmod
-    from nimble_tpu.config import Config, Data
-    from nimble_tpu.index.builder import build_index
+    from nimble_tpu_torch import seq as seqmod
+    from nimble_tpu_torch.config import Config, Data
+    from nimble_tpu_torch.index.builder import build_index
     from nimble_tpu_torch.align.tables import device_tables
 
     rng = np.random.default_rng(16)
@@ -516,14 +560,42 @@ def check_mono(label: str, bucket, stash, W: int, codes=None, lens=None, k: int 
     hit = float((got[0] != 0).any(dim=-1).float().mean())
     B, P = hi.shape
     say("kernel", f"mono_probe {label}: B={B} P={P} W={W} S={bucket.shape[1] // (2 + 2 * W)} "
-        f"nb2={bucket.shape[0]} stash={stash.shape[0]}: both outputs equal the plain version "
-        f"(windows hit {hit:.3f})")
+        f"nb2={bucket.shape[0]} stash rows={stash.shape[0]} (n_stash={int((stash[:, 0] != -1).sum())} "
+        f"keys, the rest padding; {stash.numel() * 4} B of shared memory a block): "
+        f"both outputs equal the plain version (windows hit {hit:.3f})")
     return planes, max_err
+
+
+def time_mono(label: str, args):
+    """The kernel's time on the card, its bytes and bound on these
+    arguments, and the plain version's time. Returns (ms, plain ms, bound
+    ms)."""
+    from nimble_tpu_torch import kernel_bench as KB
+    from nimble_tpu_torch.align import kernels as K
+
+    n_bytes = KB.kernel_bytes("mono_probe", args)
+    bound = KB.bound_ms(n_bytes)
+    ms = KB.device_ms(lambda: K.mono_probe(*args))
+    call_ms = cuda_ms(lambda: K.mono_probe(*args))
+    plain_ms = cuda_ms(lambda: K.mono_probe_reference(*args))
+    say("kernel", f"mono_probe {label}: kernel {ms:.4f} ms on the card (CUDA graph, median of 25), "
+        f"{n_bytes / 1e6:.1f} MB, bound {bound:.4f} ms, share {bound / ms:.3f}; one wrapper call "
+        f"{call_ms:.4f} ms (CUDA events, launch included); plain {plain_ms:.4f} ms")
+    return ms, plain_ms, bound
+
+
+def mono_main_args(eng, fq: str):
+    """mono_probe's arguments on the mono path for the first chunk of the
+    FASTQ's reads, captured from the engine."""
+    from nimble_tpu_torch import kernel_bench as KB
+
+    return KB.captured(eng, *KB.fastq_head(fq, eng.chunk_size, eng.max_len), "mono_probe")
 
 
 def phase_mono_kernel(lib: str, fq: str, nm1_lib: str, nm1_fq: str):
     """mono_probe against its plain version at the mono path's arguments
-    and edge cases; timed at the main-path shape and at the large table."""
+    and edge cases; timed at the main path's arguments and at the large
+    table."""
     from nimble_tpu_torch.align import kernels as K
     from nimble_tpu_torch.align.tables import table_words
 
@@ -533,16 +605,16 @@ def phase_mono_kernel(lib: str, fq: str, nm1_lib: str, nm1_fq: str):
     W = table_words(eng.tables)
     say("kernel", f"mono main-path arguments (align --probe mono, HLA-100): B={B} L={L} k={k} "
         f"P={L - k + 1} W={W} S={bucket.shape[1] // (2 + 2 * W)} nb2={bucket.shape[0]} stash={stash.shape[0]}")
+    args = mono_main_args(eng, fq)
+    planes, max_err = check_mono("main path (the first chunk of the bench reads)", bucket, stash, W,
+                                 planes=args[1:7])
+    ms, plain_ms, bound = time_mono("main path", args)
     codes, lens = fastq_codes(fq, B, L, seed=1)
-    planes, max_err = check_mono("main path", bucket, stash, W, codes, lens, k)
-    ms = cuda_ms(lambda: K.mono_probe(bucket, *planes, stash, W))
-    plain_ms = cuda_ms(lambda: K.mono_probe_reference(bucket, *planes, stash, W))
-    say("kernel", f"mono_probe main path: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 25)")
+    errs = [max_err, check_mono("the same reads, 1% N bases, 5% cut short", bucket, stash, W, codes, lens, k)[1]]
 
     full_bucket, full_stash = _full_stash(bucket, stash, planes, W)
     if full_stash.shape[0] != K.MONO_MAX_STASH:
         raise AssertionError(f"the full-stash table holds {full_stash.shape[0]} stash rows")
-    errs = [max_err]
     errs.append(check_mono("full 64-row stash", full_bucket, full_stash, W, codes, lens, k)[1])
     errs.append(check_mono("B=4099 (B*P not a multiple of 256)", bucket, stash, W,
                            codes[:4099].contiguous(), lens[:4099].contiguous(), k)[1])
@@ -551,7 +623,7 @@ def phase_mono_kernel(lib: str, fq: str, nm1_lib: str, nm1_fq: str):
     for sW, sS, n_stash in ((4, 4, 64), (5, 2, 7), (16, 3, 1)):
         sb, ss, sp = synthetic_planes(1001, 37, sW, sS, n_stash, seed=sW)
         errs.append(check_mono(f"synthetic keys and flags (palindromes, S={sS})", sb, ss, sW, planes=sp)[1])
-    del eng, full_bucket, full_stash, wt
+    del eng, args, full_bucket, full_stash, wt
 
     t0 = time.perf_counter()
     eng = mono_engine(nm1_lib, group_g=None)  # num_mismatches = 1: no group entries
@@ -559,16 +631,17 @@ def phase_mono_kernel(lib: str, fq: str, nm1_lib: str, nm1_fq: str):
     torch.cuda.synchronize()
     nW = table_words(eng.tables)
     say("kernel", f"num_mismatches=1 table: {tuple(nb.shape)} int32 = {nb.numel() * 4 / 1e9:.2f} GB, "
-        f"stash {ns.shape[0]}; index load + table build + copy to the card {time.perf_counter() - t0:.2f} s")
+        f"stash {ns.shape[0]}; index load + table build + copy to the card {time.perf_counter() - t0:.2f} s, "
+        f"of it the slot-major re-lay on the card {stage_wall('mono_relayout'):.4f} s (stage log)")
+    args = mono_main_args(eng, nm1_fq)
+    errs.append(check_mono("num_mismatches=1 (the first chunk of its reads)", nb, ns, nW, planes=args[1:7])[1])
     codes, lens = fastq_codes(nm1_fq, eng.chunk_size, eng.max_len, seed=2)
-    planes, err = check_mono("num_mismatches=1", nb, ns, nW, codes, lens, eng.params.k)
-    errs.append(err)
-    big_ms = cuda_ms(lambda: K.mono_probe(nb, *planes, ns, nW))
-    big_plain = cuda_ms(lambda: K.mono_probe_reference(nb, *planes, ns, nW))
-    say("kernel", f"mono_probe num_mismatches=1 table: kernel {big_ms:.4f} ms, plain {big_plain:.4f} ms (median of 25)")
-    del eng, nb, ns, planes
+    errs.append(check_mono("num_mismatches=1, 1% N bases, 5% cut short", nb, ns, nW, codes, lens,
+                           eng.params.k)[1])
+    time_mono("num_mismatches=1 table", args)
+    del eng, nb, ns, args
     torch.cuda.empty_cache()
-    return max(errs), ms, plain_ms
+    return max(errs), ms, plain_ms, bound
 
 
 def phase_mono_main(work: str, lib: str, fq: str, bam: str, nm1_lib: str, nm1_fq: str):
@@ -590,10 +663,10 @@ def phase_mono_main(work: str, lib: str, fq: str, bam: str, nm1_lib: str, nm1_fq
 
 
 def phase_cuda_vs_cpu(work: str):
+    from nimble_tpu_torch import bench_data
+
     d = os.path.join(work, "cmp")
-    run([sys.executable, "scripts/make_bench_fastq.py", d, str(N_CMP_READS)])
-    lib = os.path.join(d, "hla100.json")
-    fq = os.path.join(d, f"reads_{N_CMP_READS}.fastq.gz")
+    lib, fq = bench_data.write_single(d, N_CMP_READS)
     for probe, flags in (("group", []), ("mono", MONO)):
         outs = {}
         for dev in ("cuda", "cpu"):
@@ -608,91 +681,24 @@ def phase_cuda_vs_cpu(work: str):
             f"({tsv_rows(outs['cuda'])} rows)")
 
 
-def wide_library(d: str):
-    """scripts/bigindex.py:build_library's 20k-allele library, with its seed
-    and draws (the alleles of scripts/make_big20k_cli.py too), written as a
-    [Config, Data] JSON. Returns (path, alleles (20,000, 3,000) int8)."""
-    from nimble_tpu import seq as seqmod
-    from nimble_tpu.config import Config, Data
-
-    rng = np.random.default_rng(0)
-    data = Data()
-    alleles = np.empty((WIDE_FAMILIES * WIDE_ALLELES, WIDE_LEN), dtype=np.int8)
-    for fam in range(WIDE_FAMILIES):
-        bb = rng.integers(0, 4, size=WIDE_LEN).astype(np.int8)
-        for a in range(WIDE_ALLELES):
-            s = bb.copy()
-            pos = rng.integers(0, WIDE_LEN, size=WIDE_SNPS)
-            s[pos] = rng.integers(0, 4, size=WIDE_SNPS).astype(np.int8)
-            alleles[fam * WIDE_ALLELES + a] = s
-            for col, v in zip(data.columns, ("hla_kir_20k", f"F{fam:02d}*{a:04d}", str(WIDE_LEN),
-                                             seqmod.decode(s))):
-                col.append(v)
-    lib = os.path.join(d, "big20k.json")
-    with open(lib, "w") as f:
-        json.dump([Config().to_dict(), data.__dict__], f)
-    return lib, alleles
-
-
-def _allele_reads(rng, alleles, src, start):
-    """READ_LEN bases of allele `src` from `start`, with WIDE_ERROR
-    substitutions."""
-    codes = alleles[src[:, None], start[:, None] + np.arange(READ_LEN)[None, :]]
-    err = rng.random(codes.shape) < WIDE_ERROR
-    return np.where(err, rng.integers(0, 4, size=codes.shape), codes).astype(np.int8)
-
-
-def _fastq_records(codes, prefix: bytes, first: int, suffix: bytes = b"") -> bytes:
-    lut = np.frombuffer(b"ACGT", dtype=np.uint8)
-    qual = b"I" * codes.shape[1]
-    return b"".join(b"@%s%d%s\n%s\n+\n%s\n" % (prefix, first + i, suffix, r.tobytes(), qual)
-                    for i, r in enumerate(lut[codes]))
-
-
 def phase_wide_data(work: str):
-    """The gband path's workload: the 20k-allele library and its index; gz
-    FASTQs of N_WIDE_READS single-end reads from random alleles (half
-    reverse-complemented), of their first N_WIDE_CMP, and of N_WIDE_PAIRS
-    pairs whose mates come from one 200-400 bp fragment of one allele."""
+    """The gband path's workload (bench_data.write_wide): the 20k-allele
+    library and its index; gz FASTQs of N_WIDE_READS single-end reads, of
+    their first N_WIDE_CMP, and of N_WIDE_PAIRS pairs."""
     import gzip
+    import itertools
 
-    from nimble_tpu import seq as seqmod
+    from nimble_tpu_torch import bench_data
 
     d = os.path.join(work, "wide")
-    os.makedirs(d)
     t0 = time.perf_counter()
-    lib, alleles = wide_library(d)
-    n_al = alleles.shape[0]
-    rng = np.random.default_rng(7)
-    block = 1 << 17
-    fq = os.path.join(d, f"reads20k_{N_WIDE_READS}.fastq.gz")
+    lib, fq, r1, r2 = bench_data.write_wide(d, N_WIDE_READS, N_WIDE_PAIRS)
     cmp_fq = os.path.join(d, f"reads20k_{N_WIDE_CMP}.fastq.gz")
-    with gzip.open(fq, "wb", compresslevel=1) as f:
-        for s0 in range(0, N_WIDE_READS, block):
-            n = min(block, N_WIDE_READS - s0)
-            codes = _allele_reads(rng, alleles, rng.integers(0, n_al, size=n),
-                                  rng.integers(0, WIDE_LEN - READ_LEN + 1, size=n))
-            rc = rng.random(n) < 0.5
-            codes[rc] = seqmod.revcomp_codes(codes[rc])
-            f.write(_fastq_records(codes, b"r", s0))
-            if s0 == 0:
-                with gzip.open(cmp_fq, "wb", compresslevel=1) as g:
-                    g.write(_fastq_records(codes[:N_WIDE_CMP], b"r", 0))
-    r1 = os.path.join(d, f"pairs20k_r1_{N_WIDE_PAIRS}.fastq.gz")
-    r2 = os.path.join(d, f"pairs20k_r2_{N_WIDE_PAIRS}.fastq.gz")
-    with gzip.open(r1, "wb", compresslevel=1) as f1, gzip.open(r2, "wb", compresslevel=1) as f2:
-        for s0 in range(0, N_WIDE_PAIRS, block):
-            n = min(block, N_WIDE_PAIRS - s0)
-            src = rng.integers(0, n_al, size=n)
-            frag = rng.integers(200, 401, size=n)
-            st = (rng.random(n) * (WIDE_LEN - frag + 1)).astype(np.int64)
-            head = _allele_reads(rng, alleles, src, st)
-            tail = seqmod.revcomp_codes(_allele_reads(rng, alleles, src, st + frag - READ_LEN))
-            flip = (rng.random(n) < 0.5)[:, None]  # fragments of either strand
-            f1.write(_fastq_records(np.where(flip, tail, head), b"p", s0, b"/1"))
-            f2.write(_fastq_records(np.where(flip, head, tail), b"p", s0, b"/2"))
-    say("data", f"generated the 20k-allele library ({n_al} alleles x {WIDE_LEN} bp), {N_WIDE_READS} reads "
-        f"and {N_WIDE_PAIRS} pairs in {time.perf_counter() - t0:.1f} s")
+    with gzip.open(fq, "rb") as f, gzip.open(cmp_fq, "wb", compresslevel=1) as g:
+        g.write(b"".join(itertools.islice(f, 4 * N_WIDE_CMP)))
+    n_al = bench_data.WIDE_FAMILIES * bench_data.WIDE_ALLELES
+    say("data", f"generated the 20k-allele library ({n_al} alleles x {bench_data.WIDE_LEN} bp), "
+        f"{N_WIDE_READS} reads and {N_WIDE_PAIRS} pairs in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     cli(["index", "--reference", lib])
     say("data", f"20k index built (C++ builder) and saved in {time.perf_counter() - t0:.2f} s")
@@ -762,7 +768,8 @@ def phase_wide_kernel(lib: str, fq: str):
     band_tree_expand against its plain version on the (idx_sel, has_sel)
     its gband step passes for the first chunk of real reads, and on the
     synthetic cases; timed at the main-path shape."""
-    from nimble_tpu.index.builder import KmerIndex
+    from nimble_tpu_torch import kernel_bench as KB
+    from nimble_tpu_torch.index.builder import KmerIndex
     from nimble_tpu_torch.align import engine as TE
     from nimble_tpu_torch.align import kernels as K
     from nimble_tpu_torch.align import tables as TT
@@ -812,32 +819,26 @@ def phase_wide_kernel(lib: str, fq: str):
         if eng is None:
             eng = TE.AlignEngine(index, r.config, dev, chunk_size=None, max_len=max_len)
         B, L = eng.chunk_size, eng.max_len
-        codes, lens = fastq_head(fq, B, L)
-        seen = []
-        orig = TE.band_tree_expand
-
-        def capture(tbl, idx_sel, has_sel, w, pw):
-            seen.append((idx_sel.clone(), has_sel.clone()))
-            return orig(tbl, idx_sel, has_sel, w, pw)
-
-        TE.band_tree_expand = capture
-        try:
-            eng.align_batch(codes, lens)
-        finally:
-            TE.band_tree_expand = orig
-        idx_sel, has_sel = seen[0]
+        args = KB.captured(eng, *KB.fastq_head(fq, B, L), "band_tree_expand")
+        _, idx_sel, has_sel, _, _ = args
         label = "main path" if max_len != READ_LEN else "L=100 (the reference bench's width)"
         say("kernel", f"band_tree_expand {label} arguments (20k library): B={B} L={L} "
             f"Q1={idx_sel.shape[1]} W={W} Pw={Pw}")
-        errs.append(check_band(label, table, idx_sel, has_sel, W, Pw)[0])
-        t_ms = cuda_ms(lambda: K.band_tree_expand(table, idx_sel, has_sel, W, Pw))
-        t_plain = cuda_ms(lambda: K.band_tree_expand_reference(table, idx_sel, has_sel, W, Pw))
-        say("kernel", f"band_tree_expand {label}: kernel {t_ms:.4f} ms ({B * W * 4 / (t_ms * 1e-3) / 1e9:.1f} "
-            f"GB/s of outputs), plain {t_plain:.4f} ms (median of 25)")
+        errs.append(check_band(label, *args)[0])
+        t_ms = KB.device_ms(lambda: K.band_tree_expand(*args))
+        call_ms = cuda_ms(lambda: K.band_tree_expand(*args))
+        t_plain = cuda_ms(lambda: K.band_tree_expand_reference(*args))
+        n_bytes = KB.kernel_bytes("band_tree_expand", args)
+        t_bound = KB.bound_ms(n_bytes)
+        rows = int(torch.unique(idx_sel[has_sel]).numel())
+        say("kernel", f"band_tree_expand {label}: kernel {t_ms:.4f} ms on the card (CUDA graph, median of 25), "
+            f"{n_bytes / 1e6:.1f} MB ({rows} distinct band rows), bound {t_bound:.4f} ms, share "
+            f"{t_bound / t_ms:.3f}; one wrapper call {call_ms:.4f} ms (CUDA events, launch included); "
+            f"plain {t_plain:.4f} ms")
         if max_len != READ_LEN:
-            ms, plain_ms = t_ms, t_plain
+            ms, plain_ms, bound = t_ms, t_plain, t_bound
         eng = None
-        del seen, idx_sel, has_sel
+        del args, idx_sel, has_sel
     del r, index, table, bucket
     for i, (label, sB, sW, sPw, sQ1, miss) in enumerate(BAND_CASES):
         t, ix, hs = band_case(sB, sW, sPw, sQ1, seed=i, miss=miss)
@@ -846,7 +847,7 @@ def phase_wide_kernel(lib: str, fq: str):
             raise AssertionError(f"band_tree_expand {label}: reads without a row have bits")
         errs.append(err)
     torch.cuda.empty_cache()
-    return max(errs), ms, plain_ms
+    return max(errs), ms, plain_ms, bound
 
 
 def phase_wide_main(work: str, lib: str, fq: str, r1: str, r2: str):
@@ -892,49 +893,33 @@ def main() -> int:
         # the pipeline's stage log (index and engine build walls) for drive()
         os.environ["NIMBLE_TPU_RUNLOG"] = os.path.join(work, "runlog.jsonl")
         lib, fq = phase_data(work)
-        kk_err, kk_ms, kk_plain = phase_kernel(main_path_shape(lib))
+        kk_err, kk_ms, kk_plain, kk_bound = phase_kernel(lib, fq)
         phase_goldens(work)
         bam, group_counts = phase_main_path(work, name, lib, fq)
         nm1_lib, nm1_fq = phase_mono_data(work, lib)
-        mp_err, mp_ms, mp_plain = phase_mono_kernel(lib, fq, nm1_lib, nm1_fq)
+        mp_err, mp_ms, mp_plain, mp_bound = phase_mono_kernel(lib, fq, nm1_lib, nm1_fq)
         mono_counts = phase_mono_main(work, lib, fq, bam, nm1_lib, nm1_fq)
         phase_cuda_vs_cpu(work)
         wlib, wfq, wcmp, wr1, wr2 = phase_wide_data(work)
-        bt_err, bt_ms, bt_plain = phase_wide_kernel(wlib, wfq)
+        bt_err, bt_ms, bt_plain, bt_bound = phase_wide_kernel(wlib, wfq)
         wide_counts = phase_wide_main(work, wlib, wfq, wr1, wr2)
         phase_wide_cmp(work, wlib, wcmp)
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
+    # no single PyTorch call computes any of these functions: library_ms null
+    kernels = [
+        ("kmer_keys", "nimble_tpu/align/kernels.py:157",
+         group_counts["kmer_keys"] + mono_counts["kmer_keys"] + wide_counts["kmer_keys"],
+         kk_err, kk_ms, kk_plain, kk_bound),
+        ("mono_probe", "nimble_tpu/align/kernels.py:273", mono_counts["mono_probe"],
+         mp_err, mp_ms, mp_plain, mp_bound),
+        ("band_tree_expand", "nimble_tpu/align/kernels.py:394", wide_counts["band_tree_expand"],
+         bt_err, bt_ms, bt_plain, bt_bound),
+    ]
     print(json.dumps({"kernels": [
-        {
-            "name": "kmer_keys",
-            "route": "cuda",
-            "source": "nimble_tpu_torch/csrc/kmer_keys.cu",
-            "replaces": "nimble_tpu/align/kernels.py:157",
-            "launches": group_counts["kmer_keys"] + mono_counts["kmer_keys"] + wide_counts["kmer_keys"],
-            "max_abs_err": kk_err,
-            "ms": kk_ms,
-            "plain_ms": kk_plain,
-        },
-        {
-            "name": "mono_probe",
-            "route": "cuda",
-            "source": "nimble_tpu_torch/csrc/mono_probe.cu",
-            "replaces": "nimble_tpu/align/kernels.py:273",
-            "launches": mono_counts["mono_probe"],
-            "max_abs_err": mp_err,
-            "ms": mp_ms,
-            "plain_ms": mp_plain,
-        },
-        {
-            "name": "band_tree_expand",
-            "route": "cuda",
-            "source": "nimble_tpu_torch/csrc/band_tree_expand.cu",
-            "replaces": "nimble_tpu/align/kernels.py:394",
-            "launches": wide_counts["band_tree_expand"],
-            "max_abs_err": bt_err,
-            "ms": bt_ms,
-            "plain_ms": bt_plain,
-        },
+        {"name": name, "route": "cuda", "source": f"nimble_tpu_torch/csrc/{name}.cu", "replaces": replaces,
+         "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
+         "bound_by": "bytes", "library_ms": None}
+        for name, replaces, launches, err, ms, plain, bound in kernels
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -2,11 +2,16 @@
 
 The JAX package `nimble_tpu/` is the reference: every module here is held
 against its counterpart there, bit for bit, by tests/test_torch_*.py. This
-package imports `torch` and never `jax`. Host code that imports no jax
-(`config`, `library`, `seq`, `io/*`, `index/builder.py`, `barcode`,
-`quant/exact`, `quant/stream`, `report/*`, `legacy`) is shared by import;
-host code that lives behind `nimble_tpu/align/__init__.py` (which imports
-the JAX engine) is copied here.
+package imports `torch` and never `jax`, and imports nothing of
+`nimble_tpu`, not even its jax-free host modules: it keeps its own copies
+of them under the reference's module paths (`config`, `seq`, `library`,
+`remote`, `barcode`, `legacy`, `observability` without the jax profiler,
+`io/*`, `index/builder`, `index/native`, the numpy half of
+`index/hashing`, `quant/exact`, `quant/stream`, `report/tsv` without the
+device engines, `report/plots` and its templates), and of the host code
+behind `nimble_tpu/align/__init__.py` (`align/host_probe`, the pipeline
+helpers, the numpy table builders). Index files and gband sidecars written
+by either package load in the other.
 
 Ported slice: `align`, single-end and paired, FASTQ and tagged BAM, on
 narrow libraries (W <= 16 bitset words, up to 512 features) on the default
@@ -21,8 +26,13 @@ torch versions on the CPU.
 
 Modules (named after their reference counterparts):
   nimble_tpu_torch.device          — explicit device resolution
-  nimble_tpu_torch.native_build    — builds the shared native host library
-  nimble_tpu_torch.index.hashing   — bucket hashes on int64 tensors
+  nimble_tpu_torch.native_build    — builds the repo's native host library
+  nimble_tpu_torch.bench_data      — the HLA-100 and 20k-allele bench
+                                     workloads, from seeds
+  nimble_tpu_torch.kernel_bench    — the kernels' device time and bounds
+                                     on the main paths' own inputs, and
+                                     one checkout against another
+  nimble_tpu_torch.index.hashing   — bucket hashes, numpy and int64 tensors
   nimble_tpu_torch.align.tables    — group, gband, mono and two-choice
                                      device tables
   nimble_tpu_torch.align.kernels   — kmer_keys, mono_probe,

@@ -2,7 +2,8 @@
 
 `align` runs the port on an explicit `--device` (cuda by default; cpu runs
 the plain torch twins). `generate`, `fastq-to-bam`, `report` (host engine),
-`plot`, `index` and `download` dispatch to the shared jax-free host code.
+`plot`, `index` and `download` run the port's own copies of the reference's
+host modules; nothing here imports nimble_tpu.
 `report --device`, `report --distributed` and `index --warm` are not ported
 yet and exit non-zero naming their ROADMAP item.
 """
@@ -18,8 +19,8 @@ def _unported(msg: str) -> int:
 
 
 def _ensure_native() -> None:
-    """Build the shared native host library before its loader looks; say
-    so on stderr when no compiler can."""
+    """Build the native host library before its loader looks; say so on
+    stderr when no compiler can."""
     from nimble_tpu_torch.native_build import build_native
 
     ok, how = build_native()
@@ -129,7 +130,7 @@ def main(argv=None) -> int:
         print("nimble_tpu_torch's aligner is built in; nothing to download.")
         return 0
     if args.subcommand == "generate":
-        from nimble_tpu.library import generate
+        from nimble_tpu_torch.library import generate
 
         generate(args.file, args.opt_file, args.output_path)
         return 0
@@ -158,7 +159,7 @@ def main(argv=None) -> int:
             return _unported("report --distributed is ROADMAP Queue 1 items 12-13")
         if args.device:
             return _unported("report --device is ROADMAP Queue 1 item 12")
-        from nimble_tpu.report.tsv import report
+        from nimble_tpu_torch.report.tsv import report
 
         summarize_columns_list = args.summarize.split(",") if args.summarize else None
         report(
@@ -167,17 +168,16 @@ def main(argv=None) -> int:
             summarize_columns_list,
             args.threshold,
             args.disable_thresholding,
-            engine="host",
             stream=args.stream,
         )
         return 0
     if args.subcommand == "plot":
-        from nimble_tpu.report.plots import plot_command
+        from nimble_tpu_torch.report.plots import plot_command
 
         plot_command(args.input_file, args.output_file)
         return 0
     if args.subcommand == "fastq-to-bam":
-        from nimble_tpu.barcode import fastq_to_bam_with_barcodes
+        from nimble_tpu_torch.barcode import fastq_to_bam_with_barcodes
 
         fastq_to_bam_with_barcodes(
             args.r1_fastq,
@@ -192,8 +192,8 @@ def main(argv=None) -> int:
     if args.subcommand == "index":
         if args.warm:
             return _unported("index --warm is ROADMAP Queue 1 item 14")
-        from nimble_tpu.config import load_library
-        from nimble_tpu.index.builder import build_index, index_cache_key, index_cache_path
+        from nimble_tpu_torch.config import load_library
+        from nimble_tpu_torch.index.builder import build_index, index_cache_key, index_cache_path
 
         config, data = load_library(args.reference)
         group_g = 0 if args.probe == "mono" else None

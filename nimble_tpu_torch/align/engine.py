@@ -49,8 +49,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from nimble_tpu.config import Config
-from nimble_tpu.index.builder import BUCKET_SLOTS, STASH_SIZE, KmerIndex
+from nimble_tpu_torch.config import Config
+from nimble_tpu_torch.index.builder import BUCKET_SLOTS, STASH_SIZE, KmerIndex
 from nimble_tpu_torch.align.kernels import (
     N_CODE,
     _to_i32,

@@ -23,9 +23,9 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from nimble_tpu import seq as seqmod
-from nimble_tpu.config import Config
-from nimble_tpu.index.builder import KmerIndex
+from nimble_tpu_torch import seq as seqmod
+from nimble_tpu_torch.config import Config
+from nimble_tpu_torch.index.builder import KmerIndex
 
 
 def _rc_code(code: int, k: int) -> int:

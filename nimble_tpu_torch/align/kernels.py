@@ -51,6 +51,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
+# each kernel's registers, shared memory and spills, kept beside the library
+PTXAS_FLAGS = ["-Xptxas", "-v"]
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -150,7 +152,7 @@ def library_path() -> str:
     """Path of the built kernel library, keyed by a hash of the sources and
     flags so that an edit rebuilds it."""
     srcs = sorted(f for f in os.listdir(CSRC) if f.endswith(".cu"))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + PTXAS_FLAGS).encode())
     for f in srcs:
         with open(os.path.join(CSRC, f), "rb") as fh:
             h.update(f.encode() + fh.read())
@@ -160,7 +162,7 @@ def library_path() -> str:
 def build() -> str:
     """Compile csrc/*.cu into the shared library unless it is already built:
     one nvcc per source, all started together, then one link. Returns its
-    path."""
+    path; what ptxas said of each kernel is in `<path>.ptxas.txt`."""
     path = library_path()
     if os.path.exists(path):
         return path
@@ -169,17 +171,20 @@ def build() -> str:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in srcs]
         procs = [
-            subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", o, s],
+            subprocess.Popen([_nvcc(), *NVCC_FLAGS, *PTXAS_FLAGS, "-c", "-o", o, s],
                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
             for s, o in zip(srcs, objs)
         ]
-        failed = []
+        failed, logs = [], []
         for s, p in zip(srcs, procs):
             _, err = p.communicate()
             if p.returncode != 0:
                 failed.append(f"{os.path.basename(s)} ({p.returncode}):\n{err}")
+            logs.append(f"== {os.path.basename(s)}\n{err}")
         if failed:
             raise RuntimeError("nvcc failed on " + "\n".join(failed))
+        with open(path + ".ptxas.txt", "w") as f:
+            f.write("\n".join(logs))
         so = os.path.join(tmp, "lib.so")
         res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", so, *objs],
                              capture_output=True, text=True)
@@ -278,7 +283,8 @@ def mono_probe_reference(bucket: torch.Tensor, h1: torch.Tensor, hi_i: torch.Ten
                          palindrome: torch.Tensor, valid: torch.Tensor,
                          stash: torch.Tensor, W: int):
     """The plain torch version of the kernel: engine.py:mono_probe's XLA
-    branch after the row gather `bucket[h1]`. Slot select by key compare
+    branch after the row gather `bucket[h1]`, on the slot-major table that
+    the kernel reads (tables.relayout_mono). Slot select by key compare
     (empty slots hold hi = -1, which no canonical key has), sum-select of
     the one matching slot, stash OR, orientation select, invalid windows
     zeroed."""
@@ -286,14 +292,13 @@ def mono_probe_reference(bucket: torch.Tensor, h1: torch.Tensor, hi_i: torch.Ten
     S = bucket.shape[1] // (2 + 2 * W)
     row = bucket[h1.long()]  # (B, P, S * (2 + 2W))
     match = (row[..., 0:S] == hi_i[..., None]) & (row[..., S : 2 * S] == lo_i[..., None])
-    sel = match[:, :, None, :]  # (B, P, 1, S)
-    vsb = row[..., 2 * S : 2 * S + W * S].reshape(B, P, W, S)
-    vdb = row[..., 2 * S + W * S :].reshape(B, P, W, S)
+    sel = match[..., None, None]  # (B, P, S, 1, 1)
+    vals = row[..., 2 * S :].reshape(B, P, S, 2, W)
     zero = torch.zeros((), dtype=torch.int32, device=bucket.device)
     # at most one slot matches (keys are unique): the int64 sum holds
     # exactly that slot's int32 word
-    vs = torch.where(sel, vsb, zero).sum(dim=3).to(torch.int32)
-    vd = torch.where(sel, vdb, zero).sum(dim=3).to(torch.int32)
+    vsd = torch.where(sel, vals, zero).sum(dim=2).to(torch.int32)  # (B, P, 2, W)
+    vs, vd = vsd[:, :, 0], vsd[:, :, 1]
     for s in range(stash.shape[0]):
         m = ((stash[s, 0] == hi_i) & (stash[s, 1] == lo_i))[..., None]
         vs = vs | torch.where(m, stash[s, 2 : 2 + W], zero)
@@ -308,8 +313,9 @@ def mono_probe_reference(bucket: torch.Tensor, h1: torch.Tensor, hi_i: torch.Ten
 def mono_probe(bucket: torch.Tensor, h1: torch.Tensor, hi_i: torch.Tensor,
                lo_i: torch.Tensor, fwd_canon: torch.Tensor, palindrome: torch.Tensor,
                valid: torch.Tensor, stash: torch.Tensor, W: int):
-    """The fused mono probe. bucket (nb2, S*(2+2W)) int32 mono table; h1,
-    hi_i, lo_i (B, P) int32 (bucket hash and canonical key bit patterns);
+    """The fused mono probe. bucket (nb2, S*(2+2W)) int32 mono table, laid
+    out slot-major (tables.relayout_mono); h1, hi_i, lo_i (B, P) int32
+    (bucket hash and canonical key bit patterns);
     fwd_canon, palindrome, valid (B, P) bool; stash (n_stash, 2+2W) int32
     rows [hi, lo, vs_bits, vd_bits] -> (bits_f, bits_r), each (B, P, W)
     int32. Every tensor must be contiguous and on one device."""

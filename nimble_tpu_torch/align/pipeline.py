@@ -26,8 +26,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from nimble_tpu.config import Config, load_library
-from nimble_tpu.index.builder import KmerIndex, build_index_for_library
+from nimble_tpu_torch.config import Config, load_library
+from nimble_tpu_torch.index.builder import KmerIndex, build_index_for_library
 from nimble_tpu_torch.align.engine import AlignEngine, expand_band_rows_np, ids_to_bits_np
 
 TSV_HEADER = [
@@ -120,7 +120,7 @@ def _resolve_classes_from_cols(
         names = index.feature_names
     boundaries = np.searchsorted(rows, np.arange(u + 1))
 
-    from nimble_tpu.io import native
+    from nimble_tpu_torch.io import native
 
     if native.available():
         lexrank, names_bytes, name_offs = _lex_tables(index, emit.group_on, names)
@@ -282,7 +282,7 @@ class LibraryRunner:
         f1 = out["r1_fwd"]
         f2 = out["r2_fwd"]
 
-        from nimble_tpu.io import native
+        from nimble_tpu_torch.io import native
 
         if native.available():
             pos_arr = (
@@ -495,7 +495,7 @@ def _make_batches(inputs: Sequence[str], is_bam: bool, batch_records: int,
     """Reader batch iterator (dicts of r1_codes/r1_lens[, r2_*][, meta]):
     native BAM with a prefetch thread, the threaded native FASTQ reader for
     num_cores > 1, else the native or python single-threaded readers."""
-    from nimble_tpu.io import native
+    from nimble_tpu_torch.io import native
 
     if is_bam:
         # non-regular inputs (FIFOs) go to the python reader: the native
@@ -507,22 +507,22 @@ def _make_batches(inputs: Sequence[str], is_bam: bool, batch_records: int,
                 ),
                 depth=INFLIGHT + 1,
             )
-        from nimble_tpu.io.bam import iter_bam_batches
+        from nimble_tpu_torch.io.bam import iter_bam_batches
 
         return iter_bam_batches(inputs[0], batch_records=batch_records, max_len=max_len)
     r2 = inputs[1] if len(inputs) == 2 else None
     if num_cores > 1 and native.available():
-        from nimble_tpu.io.threaded import ThreadedFastqReader
+        from nimble_tpu_torch.io.threaded import ThreadedFastqReader
 
         return iter(ThreadedFastqReader(
             inputs[0], r2, batch_size=batch_records, max_len=max_len,
             num_threads=num_cores, prefetch=INFLIGHT + 1,
         ))
     if native.available():
-        from nimble_tpu.io.native import NativeFastqReader
+        from nimble_tpu_torch.io.native import NativeFastqReader
 
         return iter(NativeFastqReader(inputs[0], r2, batch_size=batch_records, max_len=max_len))
-    from nimble_tpu.io.fastq import FastqReader
+    from nimble_tpu_torch.io.fastq import FastqReader
 
     return iter(FastqReader(inputs[0], r2, batch_size=batch_records, max_len=max_len))
 
@@ -588,8 +588,8 @@ def align_files(
     INFLIGHT in flight; an emission thread copies results back,
     repairs reads shorter than k+g-1 on the host (host_probe.py) and writes
     the TSV rows."""
-    from nimble_tpu.io.packing import pack_batch
-    from nimble_tpu.observability import Throughput, runlog
+    from nimble_tpu_torch.io.packing import pack_batch
+    from nimble_tpu_torch.observability import Throughput, runlog
 
     from nimble_tpu_torch.align.host_probe import HostMonoProber, patch_short_reads
 

@@ -16,8 +16,10 @@ as the plain int `gband_words` on the gband path (`table_words`).
 
 Group bucket row layout (S = MONO_SLOTS slots):
   [hi x S | lo x S | vs_and (W, S) | vd_and (W, S) | mask x S]
-Mono bucket row layout (planar, slot-minor):
+Mono bucket row layout, on the host (planar, slot-minor, the reference's):
   [hi x S | lo x S | vs_bits (W, S) | vd_bits (W, S)]
+and as shipped (`relayout_mono`: slot-major, the mono_probe kernel's):
+  [hi x S | lo x S | slot 0: vs_bits (W), vd_bits (W) | slot 1: ... ]
 with its stash shipped as one (n_stash, 2 + 2W) matrix of
   [hi | lo | vs_bits (W) | vd_bits (W)] rows (`mono_stash`).
 Two-choice inline bucket row layout (S = BUCKET_SLOTS slots):
@@ -38,8 +40,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from nimble_tpu.index.builder import BUCKET_SLOTS, KmerIndex
-from nimble_tpu.index.hashing import bucket_hashes_np
+from nimble_tpu_torch.index.builder import BUCKET_SLOTS, KmerIndex
+from nimble_tpu_torch.index.hashing import bucket_hashes_np
+from nimble_tpu_torch.observability import runlog
 
 MONO_SLOTS = 4
 MONO_MAX_BYTES = 6 << 30
@@ -611,14 +614,33 @@ def _gband_to_device(np_tables, W: int, device) -> Dict[str, torch.Tensor]:
     return {**{k: as_t(np_tables[k]) for k in GBAND_KEYS}, "gband_words": int(W)}
 
 
-def tables_from_reference(np_tables, device) -> Dict[str, torch.Tensor]:
+# rows of the mono table re-laid at a time (bounds the transient copy)
+RELAYOUT_ROWS = 1 << 20
+
+
+def relayout_mono(bucket: torch.Tensor, W: int) -> torch.Tensor:
+    """Re-lay a (nb2, S (2 + 2W)) mono table from the planar layout to the
+    slot-major one, in place, RELAYOUT_ROWS rows at a time: the keys stay,
+    the values (vs/vd, w, s) become (s, vs/vd, w), so that a matched slot's
+    2W words are one contiguous run. Returns bucket."""
+    S = bucket.shape[1] // (2 + 2 * W)
+    for a in range(0, bucket.shape[0], RELAYOUT_ROWS):
+        vals = bucket[a : a + RELAYOUT_ROWS, 2 * S :]
+        vals.copy_(vals.reshape(-1, 2, W, S).permute(0, 3, 1, 2).reshape(vals.shape))
+    return bucket
+
+
+def tables_from_reference(np_tables, device, owned: bool = False) -> Dict[str, torch.Tensor]:
     """The reference's `_device_tables(index)` output, taken as numpy arrays,
     -> the port's tensors on `device`, for the path the reference's
     `_score_mate` would take on them: group, else gband (W from its
-    `class_bits` placeholder), else mono, else two-choice. Only that path's
-    entries are carried."""
-    # copies only what is not already writable contiguous int32 (a
-    # multi-GB table is not duplicated on the host)
+    `class_bits` placeholder), else mono (re-laid slot-major), else
+    two-choice. Only that path's entries are carried. The mono table is
+    re-laid on `device`, as the run log's `mono_relayout` stage; on the
+    CPU, in a copy of the caller's array, unless `owned` says the arrays
+    are this call's to change (device_tables' fresh build), so that a
+    multi-GB table is not duplicated on the host."""
+    # copies only what is not already writable contiguous int32
     as_t = lambda a: torch.from_numpy(np.require(a, np.int32, ["C", "W"])).to(device)
     if all(k in np_tables for k in GROUP_KEYS):
         return {k: as_t(np_tables[k]) for k in GROUP_KEYS}
@@ -631,7 +653,17 @@ def tables_from_reference(np_tables, device) -> Dict[str, torch.Tensor]:
              np_tables["mono_stash_vs_bits"], np_tables["mono_stash_vd_bits"]],
             axis=1,
         )
-        return {"mono_bucket": as_t(np_tables["mono_bucket"]), "mono_stash": as_t(stash)}
+        bucket = as_t(np_tables["mono_bucket"])
+        if bucket.device.type == "cpu" and not owned:  # the tensor may share the caller's array
+            bucket = bucket.clone()
+        with runlog().stage("mono_relayout", rows=bucket.shape[0], bytes=bucket.numel() * 4,
+                            device=str(bucket.device)):
+            if bucket.is_cuda:  # the copy to the card stays out of the stage
+                torch.cuda.synchronize(bucket.device)
+            relayout_mono(bucket, stash.shape[1] // 2 - 1)
+            if bucket.is_cuda:
+                torch.cuda.synchronize(bucket.device)
+        return {"mono_bucket": bucket, "mono_stash": as_t(stash)}
     missing = [k for k in INLINE_KEYS if k not in np_tables]
     if missing:
         raise ValueError(f"reference tables carry no group, mono or two-choice entries (missing {missing})")
@@ -669,4 +701,4 @@ def device_tables(index: KmerIndex, device, group_ok: bool = True) -> Dict[str, 
         tables = build_mono_tables(index)
     if tables is None:
         tables = build_inline_tables(index)
-    return tables_from_reference(tables, device)
+    return tables_from_reference(tables, device, owned=True)  # built for this call

@@ -1,5 +1,5 @@
-"""Build the shared native host library (native/libnimble_native.so) before
-the shared loader (nimble_tpu/io/native.py) first looks for it.
+"""Build the repo's native host library (native/libnimble_native.so) before
+its loader (nimble_tpu_torch/io/native.py) first looks for it.
 
 The loader runs `make -C native` with the environment's CXX, which may name a
 compiler that cannot build it (one without OpenMP's spec file); it then falls

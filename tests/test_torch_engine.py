@@ -15,7 +15,7 @@ import jax.numpy as jnp
 from nimble_tpu import seq as seqmod
 from nimble_tpu.align import engine as E
 from nimble_tpu.config import Config, Data
-from nimble_tpu.index.builder import build_index
+from tests.test_torch_host_parity import build_both
 from nimble_tpu.io.packing import pack_codes_np
 from nimble_tpu_torch.align import engine as T
 from nimble_tpu_torch.align.tables import tables_from_reference
@@ -47,12 +47,12 @@ def _library(n_features: int = 40, length: int = 600, seed: int = 11):
 @pytest.fixture(scope="module")
 def lib():
     seqs, data = _library()
-    index = build_index(data, Config())
+    index, port_index = build_both(data, Config())
     assert index.has_pairs and index.bitset_words == 2
     ref_tables = E._device_tables(index)
     assert "group_bucket" in ref_tables
     tables = tables_from_reference({k: np.asarray(v) for k, v in ref_tables.items()}, CPU)
-    return seqs, index, ref_tables, tables
+    return seqs, index, port_index, ref_tables, tables
 
 
 def _reads(seqs, B: int, L: int, seed: int):
@@ -77,11 +77,11 @@ def _reads(seqs, B: int, L: int, seed: int):
     return codes, lens
 
 
-def _params(index, config, strand):
+def _params(index, port_index, config, strand):
     ref = dataclasses.replace(
         E.AlignParams.from_config(config, index, strand), group_g=index.pair_g, window_kernel=False
     )
-    port = dataclasses.replace(T.AlignParams.from_config(config, index, strand), group_g=index.pair_g)
+    port = dataclasses.replace(T.AlignParams.from_config(config, port_index, strand), group_g=port_index.pair_g)
     return ref, port
 
 
@@ -101,9 +101,9 @@ CASES = [
 
 @pytest.mark.parametrize("strand, level, rvp, paired, pct", CASES)
 def test_align_step_matches_reference(lib, strand, level, rvp, paired, pct):
-    seqs, index, ref_tables, tables = lib
+    seqs, index, port_index, ref_tables, tables = lib
     config = Config(intersect_level=level, require_valid_pair=rvp, score_percent=pct)
-    p_ref, p_port = _params(index, config, strand)
+    p_ref, p_port = _params(index, port_index, config, strand)
     B, L = 48, 64
     c1, l1 = _reads(seqs, B, L, seed=1)
     args = [c1, l1]
@@ -124,15 +124,15 @@ def test_align_step_matches_reference(lib, strand, level, rvp, paired, pct):
 
 
 def test_pack_outputs_round_trip(lib):
-    seqs, index, ref_tables, tables = lib
-    p_ref, p_port = _params(index, Config(), "unstranded")
+    seqs, index, port_index, ref_tables, tables = lib
+    p_ref, p_port = _params(index, port_index, Config(), "unstranded")
     c1, l1 = _reads(seqs, 32, 64, seed=3)
     c2, l2 = _reads(seqs, 32, 64, seed=4)
     out = T.align_step(tables, p_port, *[torch.from_numpy(a) for a in (c1, l1, c2, l2)])
     flat = T.pack_outputs(out).numpy()
     ref_flat = np.asarray(E.pack_outputs({k: jnp.asarray(v.numpy()) for k, v in out.items()}))
     assert np.array_equal(flat, ref_flat)
-    back = T.unpack_outputs(flat, index.bitset_words, 30)
+    back = T.unpack_outputs(flat, port_index.bitset_words, 30)
     for k in OUT_KEYS:
         assert np.array_equal(back[k], out[k].numpy()[:30].astype(back[k].dtype)), k
 
@@ -158,13 +158,13 @@ def test_unpack_reads_round_trip():
 def test_engine_matches_reference_engine(lib, paired):
     """AlignEngine end to end (chunking, padding, pack/unpack), through both
     the int8 and the packed-wire dispatch, against the reference engine."""
-    seqs, index, _, _ = lib
+    seqs, index, port_index, _, _ = lib
     config = Config(intersect_level=1)
     n, L = 150, 64
     c1, l1 = _reads(seqs, n, L, seed=6)
     c2, l2 = _reads(seqs, n, L, seed=7) if paired else (None, None)
     ref = E.AlignEngine(index, config, chunk_size=64, max_len=L, paired=paired)
-    port = T.AlignEngine(index, config, CPU, chunk_size=64, max_len=L, paired=paired)
+    port = T.AlignEngine(port_index, config, CPU, chunk_size=64, max_len=L, paired=paired)
     assert port.params.group_g == ref.params.group_g == index.pair_g
     want = ref.align_batch(c1, l1, c2, l2)
     got = port.align_batch(c1, l1, c2, l2)
@@ -182,12 +182,12 @@ def test_engine_matches_reference_engine(lib, paired):
 
 @pytest.mark.parametrize("max_len, paired", [(64, False), (112, False), (112, True), (256, True)])
 def test_auto_chunk_size_matches_reference_on_cpu(lib, max_len, paired):
-    _, index, _, _ = lib
-    assert T.auto_chunk_size(index, max_len, paired, CPU) == E.auto_chunk_size(index, max_len, paired)
+    _, index, port_index, _, _ = lib
+    assert T.auto_chunk_size(port_index, max_len, paired, CPU) == E.auto_chunk_size(index, max_len, paired)
 
 
 def test_auto_chunk_size_uncapped_on_cuda(lib):
-    _, index, _, _ = lib
+    _, _, index, _, _ = lib
     cuda = T.auto_chunk_size(index, 112, False, torch.device("cuda"))
     assert cuda > T.auto_chunk_size(index, 112, False, CPU) == T.CPU_CHUNK_MAX
     assert cuda == 1 << 17 == T.AUTO_CHUNK_MAX
@@ -196,9 +196,9 @@ def test_auto_chunk_size_uncapped_on_cuda(lib):
 def test_engine_refuses_unported_paths(lib):
     """Libraries wider than 512 features (W > 16) need the wide paths; a
     step on tables of no narrow path raises."""
-    seqs, index, _, tables = lib
+    _, _, index, _, tables = lib
     _, wide = _library(n_features=600, length=60)
-    wide_index = build_index(wide, Config())
+    _, wide_index = build_both(wide, Config())
     assert wide_index.bitset_words > 16
     with pytest.raises(NotImplementedError, match="wide paths"):
         T.AlignEngine(wide_index, Config(), CPU)
@@ -211,17 +211,17 @@ def test_engine_refuses_unported_paths(lib):
     "make, kw",
     [
         (lambda index: (index, Config(kmer_stride=2)), {}),
-        (lambda index: (build_index(_library()[1], Config(), group_g=0), Config()), {}),
+        (lambda index: (build_both(_library()[1], Config(), group_g=0)[1], Config()), {}),
         (lambda index: (index, Config()), {"max_len": 24}),
         (lambda index: (index, Config()), {"group_probe": False}),
-        (lambda index: (build_index(_library(n_features=300, length=200)[1], Config()), Config()), {}),
+        (lambda index: (build_both(_library(n_features=300, length=200)[1], Config())[1], Config()), {}),
     ],
     ids=["stride2", "no-group-entries", "max-len-24", "group-probe-off", "w10"],
 )
 def test_engine_takes_the_mono_path_where_the_group_path_cannot(lib, make, kw):
     """Where the reference's group_ok is false (engine.py:2740-2750), the
     engine ships the mono table and runs with group_g = 0."""
-    _, index, _, _ = lib
+    _, _, index, _, _ = lib
     idx, config = make(index)
     eng = T.AlignEngine(idx, config, CPU, **kw)
     assert set(eng.tables) == {"mono_bucket", "mono_stash"}
@@ -243,12 +243,12 @@ def test_resolve_features_matches_reference(lib, emit):
     from nimble_tpu.align import pipeline as RP
     from nimble_tpu_torch.align import pipeline as TP
 
-    seqs, index, _, tables = lib
-    _, p_port = _params(index, Config(), "unstranded")
+    seqs, index, port_index, _, tables = lib
+    _, p_port = _params(index, port_index, Config(), "unstranded")
     c1, l1 = _reads(seqs, 64, 64, seed=8)
     bits = T.align_step(tables, p_port, torch.from_numpy(c1), torch.from_numpy(l1))["bits"].numpy()
     want = RP.resolve_features(index, bits, RP.EmitConfig(**emit))
-    got = TP.resolve_features(index, bits, TP.EmitConfig(**emit))
+    got = TP.resolve_features(port_index, bits, TP.EmitConfig(**emit))
     assert got[0] == want[0]
     assert np.array_equal(got[1], want[1])
     assert 0 < got[1].sum() < len(got[1])

@@ -21,10 +21,12 @@ from nimble_tpu import seq as seqmod
 from nimble_tpu.align import engine as E
 from nimble_tpu.align.kernels import band_tree_expand_pallas
 from nimble_tpu.config import Config, Data
-from nimble_tpu.index.builder import KmerIndex, build_index
+from nimble_tpu.index.builder import KmerIndex
 from nimble_tpu_torch.align import engine as T
 from nimble_tpu_torch.align import kernels as K
 from nimble_tpu_torch.align import tables as TT
+from nimble_tpu_torch.index.builder import KmerIndex as PortKmerIndex
+from tests.test_torch_host_parity import _assert_same_index, build_both
 
 CPU = torch.device("cpu")
 OUT_KEYS = ("bits", "score", "r1_fwd", "r1_rev", "r2_fwd", "r2_rev", "pass_")
@@ -88,11 +90,11 @@ def read_batch(seqs, B: int, L: int, seed: int, src=None):
 def fam():
     seqs = family_seqs()
     data = make_data(seqs)
-    index = build_index(data, Config(), k=K_LEN)
+    index, port_index = build_both(data, Config(), k=K_LEN)
     assert index.bitset_words == 75 and index.has_pairs
     ref_np = {k: np.asarray(v) for k, v in E._device_tables(index).items()}
     assert "gband_bucket" in ref_np
-    return seqs, data, index, ref_np, TT.tables_from_reference(ref_np, CPU)
+    return seqs, data, index, ref_np, TT.tables_from_reference(ref_np, CPU), port_index
 
 
 def _assert_tables_equal(got, ref):
@@ -107,7 +109,7 @@ def _outlier_index():
     rng = np.random.default_rng(53)
     shared = rng.integers(0, 4, size=24).astype(np.int8)
     seqs = family_seqs(seed=54, shared=(shared, {(0, 7), (7, 5)}))
-    return build_index(make_data(seqs), Config(), k=K_LEN)
+    return build_both(make_data(seqs), Config(), k=K_LEN)
 
 
 @pytest.mark.parametrize("case", ["family", "outlier", "g7", "blocked"])
@@ -115,26 +117,26 @@ def test_gband_tables_equal_reference(fam, monkeypatch, case):
     """The port's builders equal the reference's on the family library, on
     the robust (outlier) path, with g = 7 (the 5-plane probe rows) and with
     the pre-AND forced into many tiny blocks."""
-    _, data, index, _, _ = fam
+    _, data, index, _, _, port_index = fam
     if case == "outlier":
-        index = _outlier_index()
-        Pw, _, ok = TT.build_class_bands_robust(index)
-        assert TT.build_class_bands(index) is None and not ok.all()
+        index, port_index = _outlier_index()
+        Pw, _, ok = TT.build_class_bands_robust(port_index)
+        assert TT.build_class_bands(port_index) is None and not ok.all()
     elif case == "g7":
-        index = build_index(data, Config(), k=K_LEN, group_g=7)
+        index, port_index = build_both(data, Config(), k=K_LEN, group_g=7)
     elif case == "blocked":
-        index = build_index(data, Config(), k=K_LEN)  # no cached reference build
+        index, port_index = build_both(data, Config(), k=K_LEN)  # no cached reference build
         block = 1 << 15  # 256 rows of 2 Pw = 32 words: hundreds of blocks
         assert index.pair_hi.shape[0] > 100 * block // (32 * 4)
         monkeypatch.setattr(TT, "GBAND_PREAND_BLOCK_BYTES", block)
         monkeypatch.setattr(E, "GBAND_PREAND_BLOCK_BYTES", block)
     for port_fn, ref_fn in ((TT.build_class_bands, E._build_class_bands),
                             (TT.build_class_bands_robust, E._build_class_bands_robust)):
-        got, want = port_fn(index), ref_fn(index)
+        got, want = port_fn(port_index), ref_fn(index)
         assert (got is None) == (want is None)
         for g, w in zip(got or (), want or ()):
             assert np.array_equal(np.asarray(g), np.asarray(w))
-    got = TT.build_groupband_tables(index)
+    got = TT.build_groupband_tables(port_index)
     ref = E._build_groupband_tables(index)
     _assert_tables_equal(got, ref)
     assert ("gband_packedrow" in got) == (case != "g7")
@@ -144,17 +146,21 @@ def test_gband_tables_equal_reference(fam, monkeypatch, case):
 
 @pytest.mark.parametrize("writer", ["reference", "port"])
 def test_gband_sidecar_loads_in_both_packages(fam, tmp_path, monkeypatch, writer):
-    """A sidecar written by either package loads in the other (same file,
-    fingerprint and keys) and equals a fresh build; a stale one is rebuilt."""
-    _, _, index, _, _ = fam
-    fresh = TT.build_groupband_tables(index)
+    """An index and its sidecar written by either package load in the other
+    (same file, fingerprint and keys): the index equal to both builds, the
+    tables equal to a fresh build; a stale or torn sidecar is rebuilt."""
+    _, _, index, _, _, port_index = fam
+    fresh = TT.build_groupband_tables(port_index)
     path = str(tmp_path / "lib.json.idx.npz")
-    copy.copy(index).save(path)  # save() records the path on the object
+    copy.copy(index if writer == "reference" else port_index).save(path)  # save() records the path
+    for loaded in (KmerIndex.load(path), PortKmerIndex.load(path)):
+        _assert_same_index(loaded, index)
+        _assert_same_index(loaded, port_index)
     if writer == "reference":
         E._build_groupband_tables(KmerIndex.load(path))
     else:
-        TT.groupband_tables(KmerIndex.load(path))
-    side = TT.gband_sidecar_path(KmerIndex.load(path))
+        TT.groupband_tables(PortKmerIndex.load(path))
+    side = TT.gband_sidecar_path(PortKmerIndex.load(path))
     assert side == path + ".gband.single.dense.npz"
 
     def no_build(*a, **kw):
@@ -163,21 +169,21 @@ def test_gband_sidecar_loads_in_both_packages(fam, tmp_path, monkeypatch, writer
     with monkeypatch.context() as m:
         m.setattr(TT, "build_groupband_tables", no_build)
         m.setattr(E, "_single_hash_placement", no_build)
-        _assert_tables_equal(TT.groupband_tables(KmerIndex.load(path)), fresh)
+        _assert_tables_equal(TT.groupband_tables(PortKmerIndex.load(path)), fresh)
         _assert_tables_equal(
             {k: np.asarray(v) for k, v in E._build_groupband_tables(KmerIndex.load(path)).items()}, fresh)
     with np.load(side) as z:
         stale = {k: z[k] for k in z.files}
     stale["__fp"] = stale["__fp"] + 1
     np.savez(side, **stale)
-    _assert_tables_equal(TT.groupband_tables(KmerIndex.load(path)), fresh)
+    _assert_tables_equal(TT.groupband_tables(PortKmerIndex.load(path)), fresh)
     with open(side, "r+b") as f:  # a torn write: unreadable, rebuilt
         f.truncate(f.seek(0, 2) // 2)
-    _assert_tables_equal(TT.groupband_tables(KmerIndex.load(path)), fresh)
+    _assert_tables_equal(TT.groupband_tables(PortKmerIndex.load(path)), fresh)
 
 
 def test_device_tables_ship_only_the_gband_step(fam):
-    _, _, index, ref_np, tables = fam
+    _, _, _, ref_np, tables, index = fam
     dev = TT.device_tables(index, CPU)
     assert set(dev) == set(TT.GBAND_KEYS) | {"gband_words"}
     assert TT.table_words(dev) == TT.table_words(tables) == 75
@@ -319,10 +325,10 @@ def test_band_tree_expand_rejects_bad_arguments(mutate, err):
 # --- the align step -----------------------------------------------------
 
 
-def _params(index, config, strand):
+def _params(index, port_index, config, strand):
     ref = dataclasses.replace(
         E.AlignParams.from_config(config, index, strand), group_g=index.pair_g, window_kernel=False)
-    port = dataclasses.replace(T.AlignParams.from_config(config, index, strand), group_g=index.pair_g)
+    port = dataclasses.replace(T.AlignParams.from_config(config, port_index, strand), group_g=port_index.pair_g)
     return ref, port
 
 
@@ -345,9 +351,9 @@ def test_align_step_matches_reference(fam, strand, level, rvp, paired):
     """Single-end and paired (half the mates from the same allele), every
     intersect_level, require_valid_pair, the three strand filters, N bases,
     reverse-complemented reads and reads shorter than k+g-1."""
-    seqs, _, index, ref_np, tables = fam
+    seqs, _, index, ref_np, tables, port_index = fam
     config = Config(intersect_level=level, require_valid_pair=rvp, score_percent=0.5)
-    p_ref, p_port = _params(index, config, strand)
+    p_ref, p_port = _params(index, port_index, config, strand)
     B, L = 48, 100
     c1, l1, src = read_batch(seqs, B, L, seed=1)
     args = [c1, l1]
@@ -370,7 +376,7 @@ def test_align_step_reads_through_the_stash(fam):
     """Reads that carry a stashed (k+g-1)-mer at a probe position, in both
     orientations: the step equals the reference's, and the stash decides
     the answer (the same tables without it give other bits)."""
-    seqs, _, index, ref_np, tables = fam
+    seqs, _, index, ref_np, tables, port_index = fam
     kg = K_LEN + index.pair_g - 1
     lib = torch.from_numpy(np.stack(seqs))
     c_hi, c_lo, *_ = K.kmer_keys(lib, torch.full((lib.shape[0],), lib.shape[1], dtype=torch.int32),
@@ -389,7 +395,7 @@ def test_align_step_reads_through_the_stash(fam):
         codes[i] = s[st : st + L]
     codes[1::2] = seqmod.revcomp_codes(codes[1::2])
     lens = np.full(pick.size, L, dtype=np.int32)
-    p_ref, p_port = _params(index, Config(), "unstranded")
+    p_ref, p_port = _params(index, port_index, Config(), "unstranded")
     ref_t = {k: jnp.asarray(v) for k, v in ref_np.items()}
     want = jax.jit(lambda t, *a: E.align_step(t, p_ref, *a))(ref_t, jnp.asarray(codes), jnp.asarray(lens))
     got = T.align_step(tables, p_port, torch.from_numpy(codes), torch.from_numpy(lens))
@@ -425,8 +431,8 @@ def test_band_rows_and_popcount_match_reference():
 def test_pack_outputs_idlist_matches_reference(fam, packed16, hdr1, cap):
     """Word for word on a real step's outputs (emit cap applied as the
     engine applies it), and the host inverse round-trips the ids."""
-    seqs, _, index, _, tables = fam
-    _, p = _params(index, Config(score_percent=0.5), "unstranded")
+    seqs, _, index, _, tables, port_index = fam
+    _, p = _params(index, port_index, Config(score_percent=0.5), "unstranded")
     c1, l1, _ = read_batch(seqs, 64, 100, seed=5)
     out = T.align_step(tables, p, torch.from_numpy(c1), torch.from_numpy(l1))
     rows = T.compress_band_rows(out["bits"], 16)
@@ -462,8 +468,8 @@ def test_band_and_id_resolvers_match_reference(fam, cap, discard):
     from nimble_tpu.align import pipeline as RP
     from nimble_tpu_torch.align import pipeline as TP
 
-    seqs, _, index, _, tables = fam
-    _, p = _params(index, Config(score_percent=0.5), "unstranded")
+    seqs, _, index, _, tables, port_index = fam
+    _, p = _params(index, port_index, Config(score_percent=0.5), "unstranded")
     c1, l1, _ = read_batch(seqs, 96, 100, seed=21)
     out = T.align_step(tables, p, torch.from_numpy(c1), torch.from_numpy(l1))
     bits = out["bits"].numpy()
@@ -473,11 +479,11 @@ def test_band_and_id_resolvers_match_reference(fam, cap, discard):
     fields = dict(group_on=False, discard_multiple_matches=discard, discard_multi_hits=0,
                   max_hits_to_report=cap)
     emit, ref_emit = TP.EmitConfig(**fields), RP.EmitConfig(**fields)
-    dense = _per_read(TP.resolve_features_compact(index, bits, emit))
-    band = _per_read(TP.resolve_features_band(index, rows.numpy(), 16, emit))
+    dense = _per_read(TP.resolve_features_compact(port_index, bits, emit))
+    band = _per_read(TP.resolve_features_band(port_index, rows.numpy(), 16, emit))
     assert band == _per_read(RP.resolve_features_band(index, rows.numpy(), 16, ref_emit))
     assert band == dense
-    by_ids = _per_read(TP.resolve_features_ids(index, ids, emit))
+    by_ids = _per_read(TP.resolve_features_ids(port_index, ids, emit))
     assert by_ids == _per_read(RP.resolve_features_ids(index, ids, ref_emit))
     small = T.popcount32_rows(out["bits"]).numpy() <= cap  # the ids hold the whole class
     assert [r for r, s in zip(by_ids, small) if s] == [r for r, s in zip(dense, small) if s]
@@ -490,7 +496,7 @@ def test_emit_cap_matches_reference_engine(fam):
     pass_ cleared for classes over max_hits_to_report, the same ids."""
     from nimble_tpu.io.packing import pack_batch
 
-    seqs, _, index, _, _ = fam
+    seqs, _, index, _, _, port_index = fam
     cfg = Config(score_threshold=0, score_filter=0, score_percent=0.0)
     c1, l1, _ = read_batch(seqs, 96, 100, seed=78)
     l1[:4] = 100  # the short-read repair is the pipeline's
@@ -498,7 +504,7 @@ def test_emit_cap_matches_reference_engine(fam):
     ref = E.AlignEngine(index, cfg, max_len=100, chunk_size=64, scan_chunks=2, compact_out=True)
     assert ref._idlist_wire is not None
     want = ref.collect_async(ref.align_packed_async(pb))
-    port = T.AlignEngine(index, cfg, CPU, max_len=100, chunk_size=64)
+    port = T.AlignEngine(port_index, cfg, CPU, max_len=100, chunk_size=64)
     assert port.wire == "idlist" and port.emit_cap == ref.emit_cap == 10
     assert port.idlist == ref._idlist_wire
     got = port.collect_async(port.align_packed_async(pb))
@@ -513,9 +519,9 @@ def test_emit_cap_matches_reference_engine(fam):
 def test_idlist_header_fits_the_score(fam, max_len, hdr1):
     """hdr1's 10-bit score holds 2 max_len only up to 1023: the engine picks
     the same idlist format as the reference's on each side of the bound."""
-    _, _, index, _, _ = fam
+    _, _, index, _, _, port_index = fam
     ref = E.AlignEngine(index, Config(), max_len=max_len, chunk_size=64, scan_chunks=2, compact_out=True)
-    port = T.AlignEngine(index, Config(), CPU, max_len=max_len, chunk_size=64)
+    port = T.AlignEngine(port_index, Config(), CPU, max_len=max_len, chunk_size=64)
     assert port.idlist == ref._idlist_wire and port.idlist[3] == hdr1
 
 
@@ -523,14 +529,14 @@ def test_band_wire_matches_reference_bits(fam):
     """With the cap off (group_on set), the engine ships band rows that
     expand to the reference engine's dense bits; paired intersect_level = 1
     keeps the full format."""
-    seqs, _, index, _, _ = fam
+    seqs, _, index, _, _, port_index = fam
     c1, l1, src = read_batch(seqs, 80, 100, seed=11)
     c2, l2, _ = read_batch(seqs, 80, 100, seed=12, src=src)
     for cfg, paired, wire in ((Config(group_on="fam"), False, "band"),
                               (Config(intersect_level=1), True, "full")):
         args = (c1, l1, c2, l2) if paired else (c1, l1)
         ref = E.AlignEngine(index, cfg, max_len=100, chunk_size=32, paired=paired)
-        port = T.AlignEngine(index, cfg, CPU, max_len=100, chunk_size=32, paired=paired)
+        port = T.AlignEngine(port_index, cfg, CPU, max_len=100, chunk_size=32, paired=paired)
         assert port.wire == wire
         want = ref.align_batch(*args)
         got = port.align_batch(*args)
@@ -543,7 +549,7 @@ def test_band_wire_matches_reference_bits(fam):
 
 @pytest.mark.parametrize("max_len, paired", [(100, False), (112, False), (112, True)])
 def test_auto_chunk_size_wide_banded_branch(fam, max_len, paired):
-    _, _, index, _, _ = fam
+    _, _, _, _, _, index = fam
     eng = T.AlignEngine(index, Config(), torch.device("cpu"), chunk_size=None, max_len=max_len, paired=paired)
     assert eng.band_pw == 16
     cuda = T.auto_chunk_size(index, max_len, paired, torch.device("cuda"), band_words=32)
@@ -573,23 +579,23 @@ def _groupcls_index():
         s = backbone.copy()
         s[rng.integers(320, 600, size=4)] = rng.integers(0, 4, size=4)
         seqs.append(s)
-    return build_index(make_data(seqs), Config(), k=K_LEN)
+    return build_both(make_data(seqs), Config(), k=K_LEN)
 
 
 def test_wide_paths_the_reference_takes_elsewhere_are_refused(fam, monkeypatch):
     """groupcls (banding infeasible), monocls (--probe mono, i.e. no group
     entries, or NIMBLE_TPU_NO_GROUP_PROBE=1) raise at engine build, naming
     the ROADMAP item."""
-    _, data, _, _, _ = fam
-    gcls = _groupcls_index()
+    _, data, _, _, _, _ = fam
+    gcls, port_gcls = _groupcls_index()
     assert "groupcls_bucket" in E._device_tables(gcls)
     with pytest.raises(NotImplementedError, match="groupcls.*Queue 1 item 10"):
-        T.AlignEngine(gcls, Config(), CPU)
-    mono = build_index(data, Config(), k=K_LEN, group_g=0)
+        T.AlignEngine(port_gcls, Config(), CPU)
+    mono, port_mono = build_both(data, Config(), k=K_LEN, group_g=0)
     assert "mcls_bucket" in E._device_tables(mono)
     with pytest.raises(NotImplementedError, match="monocls.*Queue 1 item 10"):
-        T.AlignEngine(mono, Config(), CPU)
-    _, _, index, _, _ = fam
+        T.AlignEngine(port_mono, Config(), CPU)
+    _, _, _, _, _, index = fam
     monkeypatch.setenv("NIMBLE_TPU_NO_GROUP_PROBE", "1")
     with pytest.raises(NotImplementedError, match="monocls.*Queue 1 item 10"):
         T.AlignEngine(index, Config(), CPU)

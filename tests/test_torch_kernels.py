@@ -67,6 +67,97 @@ def test_kmer_keys_palindromes():
         assert np.array_equal(g.numpy(), r), name
 
 
+# the segment of csrc/kmer_keys.cu: codes per segment and windows per segment
+SEG = 256
+CHUNK = SEG - 32
+M32 = np.uint64(0xFFFFFFFF)
+
+
+def _rev2(x):
+    """Reverse the sixteen 2-bit groups of uint64-held 32-bit words."""
+    x = ((x & np.uint64(0x33333333)) << np.uint64(2)) | ((x >> np.uint64(2)) & np.uint64(0x33333333))
+    x = ((x & np.uint64(0x0F0F0F0F)) << np.uint64(4)) | ((x >> np.uint64(4)) & np.uint64(0x0F0F0F0F))
+    x = ((x & np.uint64(0x00FF00FF)) << np.uint64(8)) | ((x >> np.uint64(8)) & np.uint64(0x00FF00FF))
+    return ((x << np.uint64(16)) & M32) | (x >> np.uint64(16))
+
+
+def _field64(words, pos):
+    """(B, n) uint64-held 32-bit words, (m,) base positions -> (B, m) the 64
+    bits from each position on: two funnel shifts over three words."""
+    i, s = pos >> 4, (2 * (pos & 15)).astype(np.uint64)
+    w0, w1, w2 = words[:, i], words[:, i + 1], words[:, i + 2]
+    funnel = lambda hi, lo: (((hi << np.uint64(32)) | lo) << s) >> np.uint64(32)
+    return (funnel(w0, w1) << np.uint64(32)) | funnel(w1, w2)
+
+
+def kmer_keys_model(codes, lens, k, n_buckets):
+    """A numpy model of csrc/kmer_keys.cu's indexing: per segment of up to
+    SEG codes, the forward 2-bit words (16 a word, first base high), the
+    reversed complement words and the N mask words (32 a word, first base
+    low); each window's forward key, reverse complement and N test read off
+    them as fields. Returns the 7 planes as numpy arrays."""
+    from nimble_tpu_torch.index.hashing import bucket_hashes_np
+
+    B, L = codes.shape
+    P = L - k + 1
+    key_shift = np.uint64(64 - 2 * k)
+    c_hi = np.zeros((B, P), np.uint32)
+    c_lo, fc, pal, valid = np.zeros_like(c_hi), np.zeros((B, P), bool), np.zeros((B, P), bool), np.zeros((B, P), bool)
+    raw = codes.view(np.uint8)
+    for p0 in range(0, P, CHUNK):
+        n = min(SEG, L - p0)
+        nw = (n + 15) // 16
+        nwin = min(CHUNK, P - p0)
+        seg = np.zeros((B, 16 * nw), np.uint8)
+        seg[:, :n] = raw[:, p0 : p0 + n]
+        base = (seg & 3).astype(np.uint64).reshape(B, nw, 16)
+        fw = (base << (2 * (15 - np.arange(16, dtype=np.uint64)))).sum(axis=2)  # (B, nw)
+        fwd = np.zeros((B, SEG // 16 + 2), np.uint64)
+        fwd[:, :nw] = fw
+        rc = np.zeros_like(fwd)
+        rc[:, :nw] = _rev2(~fw & M32)[:, ::-1]
+        isn = np.zeros((B, 32 * (SEG // 32 + 1)), np.uint64)
+        isn[:, : 16 * nw] = seg == 4
+        nm = (isn.reshape(B, -1, 32) << np.arange(32, dtype=np.uint64)).sum(axis=2)
+        i = np.arange(nwin)
+        f = _field64(fwd, i) >> key_shift
+        r = _field64(rc, 16 * nw - i - k) >> key_shift
+        mi = i >> 5
+        nbits = ((nm[:, mi + 1] << np.uint64(32)) | nm[:, mi]) >> (i & 31).astype(np.uint64)
+        has_n = (nbits & np.uint64((1 << k) - 1)) != 0
+        canon = np.where(f <= r, f, r)
+        sl = slice(p0, p0 + nwin)
+        c_hi[:, sl] = (canon >> np.uint64(32)).astype(np.uint32)
+        c_lo[:, sl] = (canon & M32).astype(np.uint32)
+        fc[:, sl], pal[:, sl] = f <= r, f == r
+        valid[:, sl] = ~has_n & (p0 + i + k <= lens[:, None])
+    h1, h2 = bucket_hashes_np(c_hi, c_lo, n_buckets)
+    return [c_hi.view(np.int32), c_lo.view(np.int32), h1.astype(np.int32), h2.astype(np.int32), fc, pal, valid]
+
+
+@pytest.mark.parametrize("L", ["k", 40, 100, 112, 150, 301])
+@pytest.mark.parametrize("k", [1, 2, 16, 21, 26, 31])
+def test_kmer_keys_kernel_model_matches_plain_version(k, L):
+    """The segment / packed-array indexing of the CUDA kernel, modelled in
+    numpy, == kmer_keys_reference on every plane: N bases, codes outside
+    0-4 (bases are code & 3, only 4 is N), lens below k, reads spanning
+    several segments."""
+    L = k if L == "k" else L
+    B, n_buckets = 9, 1 << 10
+    rng = np.random.default_rng(100 * k + L)
+    codes = rng.integers(0, 4, size=(B, L)).astype(np.int8)
+    codes[rng.random((B, L)) < 0.02] = 4
+    odd = rng.random((B, L)) < 0.02
+    codes[odd] = rng.choice(np.array([-128, -4, -1, 5, 7, 12, 127], np.int8), size=int(odd.sum()))
+    lens = rng.integers(0, L + 1, size=B).astype(np.int32)
+    lens[:3] = (max(k - 1, 0), k, L)
+    codes[3, :] = 0  # an all-A read: forward keys are 0, reverse complements all ones
+    got = kmer_keys_model(codes, lens, k, n_buckets)
+    want = K.kmer_keys_reference(torch.from_numpy(codes), torch.from_numpy(lens), k, n_buckets)
+    for name, g, w in zip(PLANES, got, want):
+        assert np.array_equal(g, w.numpy()), name
+
+
 @pytest.mark.parametrize(
     "codes_dtype, lens_dtype, L, k, n_buckets, err",
     [

@@ -6,6 +6,7 @@ on every output key, on the mono path and on the two-choice fallback.
 Everything compared is integer except one float32 compare, which both sides
 make in float32."""
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -18,7 +19,6 @@ from nimble_tpu import seq as seqmod
 from nimble_tpu.align import engine as E
 from nimble_tpu.align.kernels import mono_select_pallas
 from nimble_tpu.config import Config, Data
-from nimble_tpu.index.builder import build_index
 from nimble_tpu.index.hashing import bucket_hashes_jnp
 from nimble_tpu.io.packing import pack_codes_np
 from nimble_tpu_torch.align import engine as T
@@ -29,9 +29,11 @@ from nimble_tpu_torch.align.tables import (
     build_inline_tables,
     build_mono_tables,
     device_tables,
+    relayout_mono,
     table_words,
     tables_from_reference,
 )
+from tests.test_torch_host_parity import build_both
 
 CPU = torch.device("cpu")
 OUT_KEYS = ("bits", "score", "r1_fwd", "r1_rev", "r2_fwd", "r2_rev", "pass_")
@@ -105,31 +107,90 @@ def libs():
     for name, (n, length, seed, nm, k) in LIBS.items():
         seqs, data = _library(n, length, seed, palindromes=name == "pal16")
         config = Config(num_mismatches=nm, kmer_length=k)
-        index = build_index(data, config, group_g=0 if nm == 0 else None)
+        index, port_index = build_both(data, config, group_g=0 if nm == 0 else None)
         ref = {k: np.asarray(v) for k, v in E._device_tables(index, group_ok=False).items()}
-        out[name] = (seqs, config, index, ref)
+        out[name] = (seqs, config, index, ref, port_index)
     return out
 
 
 @pytest.mark.parametrize("name", sorted(LIBS))
 def test_mono_and_inline_tables_equal_reference(libs, name):
-    _, _, index, ref = libs[name]
+    _, _, index, ref, port_index = libs[name]
     assert not index.has_pairs and set(MONO_KEYS) <= set(ref)
-    mono = build_mono_tables(index)
-    inline = build_inline_tables(index)
+    mono = build_mono_tables(port_index)
+    inline = build_inline_tables(port_index)
     for k in MONO_KEYS:
         assert mono[k].dtype == np.int32 and np.array_equal(mono[k], ref[k]), k
     for k in INLINE_KEYS:
         assert inline[k].dtype == np.int32 and np.array_equal(inline[k], ref[k]), k
     # a non-empty stash, so its comparison is not vacuous
     assert (mono["mono_stash_hi"] != -1).sum() > 0
-    dev = device_tables(index, CPU)
+    dev = device_tables(port_index, CPU)
     assert set(dev) == {"mono_bucket", "mono_stash"}
-    assert np.array_equal(dev["mono_bucket"].numpy(), ref["mono_bucket"])
+    # the shipped table is the reference's, re-laid slot-major
+    W = LIBS_W[name]
+    relaid = relayout_mono(torch.from_numpy(ref["mono_bucket"].copy()), W)
+    assert np.array_equal(dev["mono_bucket"].numpy(), relaid.numpy())
+    assert np.array_equal(planar_mono(dev["mono_bucket"], W).numpy(), ref["mono_bucket"])
     stash = np.concatenate([ref["mono_stash_hi"][:, None], ref["mono_stash_lo"][:, None],
                             ref["mono_stash_vs_bits"], ref["mono_stash_vd_bits"]], axis=1)
     assert np.array_equal(dev["mono_stash"].numpy(), stash)
     assert table_words(dev) == index.bitset_words == LIBS_W[name]
+
+
+def planar_mono(bucket: torch.Tensor, W: int) -> torch.Tensor:
+    """The inverse of relayout_mono: a slot-major table back in the
+    reference's planar layout."""
+    S = bucket.shape[1] // (2 + 2 * W)
+    vals = bucket[:, 2 * S :].reshape(-1, S, 2, W).permute(0, 2, 3, 1).reshape(bucket.shape[0], -1)
+    return torch.cat([bucket[:, : 2 * S], vals], dim=1)
+
+
+@pytest.mark.parametrize("W, S, rows, block", [(4, 4, 1000, 1 << 20), (4, 4, 1000, 64), (1, 4, 33, 7),
+                                               (10, 4, 50, 16), (16, 3, 17, 5), (5, 2, 9, 4)])
+def test_relayout_mono_is_slot_major_and_inverts(monkeypatch, W, S, rows, block):
+    """relayout_mono, in blocks of any size, moves each slot's 2W value words
+    together (vs then vd), leaves the keys, and planar_mono undoes it."""
+    from nimble_tpu_torch.align import tables as TT
+
+    monkeypatch.setattr(TT, "RELAYOUT_ROWS", block)
+    rng = np.random.default_rng(W * S + rows)
+    planar = rng.integers(-(1 << 31), 1 << 31, size=(rows, S * (2 + 2 * W)), dtype=np.int64).astype(np.int32)
+    relaid = TT.relayout_mono(torch.from_numpy(planar.copy()), W).numpy()
+    assert np.array_equal(relaid[:, : 2 * S], planar[:, : 2 * S])
+    for s in range(S):
+        for w in range(W):
+            assert np.array_equal(relaid[:, 2 * S + 2 * W * s + w], planar[:, 2 * S + w * S + s])
+            assert np.array_equal(relaid[:, 2 * S + 2 * W * s + W + w], planar[:, 2 * S + (W + w) * S + s])
+    assert np.array_equal(planar_mono(torch.from_numpy(relaid), W).numpy(), planar)
+
+
+@pytest.mark.parametrize("owned", [False, True])
+def test_relayout_is_a_run_log_stage_and_copies_only_a_callers_table(libs, monkeypatch, tmp_path, owned):
+    """tables_from_reference re-lays the mono table as the run log's
+    `mono_relayout` stage. On the CPU it re-lays a copy of the caller's
+    array, unless the arrays are its own to change (owned), as
+    device_tables' fresh build is: that one it re-lays in place."""
+    from nimble_tpu_torch import observability
+    from nimble_tpu_torch.align import tables as TT
+
+    log = observability.RunLog(str(tmp_path / "run.jsonl"))
+    monkeypatch.setattr(observability, "_GLOBAL", log)
+    _, _, _, ref, port_index = libs["w2"]
+    built = build_mono_tables(port_index)
+    dev = tables_from_reference(built, CPU, owned=owned)
+    log.close()
+    assert np.shares_memory(dev["mono_bucket"].numpy(), built["mono_bucket"]) == owned
+    assert np.array_equal(built["mono_bucket"], dev["mono_bucket"].numpy() if owned else ref["mono_bucket"])
+    assert np.array_equal(planar_mono(dev["mono_bucket"], LIBS_W["w2"]).numpy(), ref["mono_bucket"])
+    events = [json.loads(ln) for ln in (tmp_path / "run.jsonl").read_text().splitlines()]
+    assert [(e["event"], e["stage"]) for e in events] == [("stage_start", "mono_relayout"),
+                                                          ("stage_end", "mono_relayout")]
+    assert events[0]["bytes"] == ref["mono_bucket"].nbytes and events[1]["wall_s"] >= 0
+    seen = []
+    monkeypatch.setattr(TT, "build_mono_tables", lambda index: seen.append(build_mono_tables(index)) or seen[-1])
+    dev = TT.device_tables(port_index, CPU)
+    assert np.shares_memory(dev["mono_bucket"].numpy(), seen[0]["mono_bucket"])
 
 
 def test_inline_tables_when_mono_placement_fails(libs, monkeypatch):
@@ -137,7 +198,7 @@ def test_inline_tables_when_mono_placement_fails(libs, monkeypatch):
     inline bucket, as the reference's _device_tables keeps it."""
     from nimble_tpu_torch.align import tables as TT
 
-    _, _, index, ref = libs["w2"]
+    _, _, _, ref, index = libs["w2"]
     monkeypatch.setattr(TT, "build_mono_tables", lambda index: None)
     dev = TT.device_tables(index, CPU)
     assert set(dev) == set(INLINE_KEYS)
@@ -175,7 +236,7 @@ def _into_inline_stash(ref, hit):
 def test_inline_probe_with_a_stash_matches_reference(libs, name):
     """lookup_inline_bits == the reference's, with hit keys in the index
     stash (real indexes rarely overflow into it)."""
-    seqs, _, index, ref = libs[name]
+    seqs, _, index, ref, _ = libs[name]
     W, k = index.bitset_words, index.k
     codes, lens = _reads(seqs, 37, 60, seed=5)
     hi, lo, valid = E.kmer_hi_lo(jnp.asarray(codes), jnp.asarray(lens), k)
@@ -238,7 +299,7 @@ def test_mono_probe_matches_reference_and_pallas(libs, name, n_move):
     """The port's mono_probe on CPU (its plain version) == the reference's
     mono_probe (XLA branch) == mono_select_pallas in interpret mode on the
     gathered, transposed rows, at B not a multiple of 8."""
-    seqs, _, index, ref = libs[name]
+    seqs, _, index, ref, _ = libs[name]
     W = index.bitset_words
     k = index.k
     B, L = 37, 60
@@ -252,6 +313,8 @@ def test_mono_probe_matches_reference_and_pallas(libs, name, n_move):
 
     tables = tables_from_reference(ref, CPU)
     assert tables["mono_stash"].shape[0] == ref["mono_stash_hi"].shape[0]
+    # the plain version reads the re-laid table, which inverts to the reference's
+    assert np.array_equal(planar_mono(tables["mono_bucket"], W).numpy(), ref["mono_bucket"])
     as_t = lambda a: torch.from_numpy(np.array(a))
     got_f, got_r = K.mono_probe(tables["mono_bucket"], as_t(h1).to(torch.int32), as_t(hi_i),
                                 as_t(lo_i), as_t(fc), as_t(pal), as_t(valid),
@@ -277,10 +340,10 @@ def test_mono_probe_matches_reference_and_pallas(libs, name, n_move):
         assert (np.isin(_key64(hi_i, lo_i), _key64(st[:, 0], st[:, 1])) & np.asarray(valid)).any()
 
 
-def _params(index, config, strand, group_g=0):
+def _params(index, port_index, config, strand, group_g=0):
     ref = dataclasses.replace(E.AlignParams.from_config(config, index, strand),
                               group_g=group_g, window_kernel=False)
-    port = dataclasses.replace(T.AlignParams.from_config(config, index, strand), group_g=group_g)
+    port = dataclasses.replace(T.AlignParams.from_config(config, port_index, strand), group_g=group_g)
     return ref, port
 
 
@@ -312,10 +375,10 @@ CASES = [
 @pytest.mark.parametrize("path", ["mono", "inline"])
 @pytest.mark.parametrize("lib_name, strand, level, rvp, paired, pct, stride", CASES)
 def test_align_step_matches_reference(libs, path, lib_name, strand, level, rvp, paired, pct, stride):
-    seqs, base_config, index, ref = libs[lib_name]
+    seqs, base_config, index, ref, port_index = libs[lib_name]
     config = dataclasses.replace(base_config, intersect_level=level, require_valid_pair=rvp,
                                  score_percent=pct, kmer_stride=stride)
-    p_ref, p_port = _params(index, config, strand)
+    p_ref, p_port = _params(index, port_index, config, strand)
     rt = _ref_tables(ref, path)
     tables = tables_from_reference(rt, CPU)
     assert ("mono_bucket" in tables) == (path == "mono")
@@ -365,16 +428,16 @@ def test_engine_matches_reference_engine(libs, lib_name, config_kw, engine_kw, L
     engine, for every way the reference reaches it."""
     if lib_name == "group":
         seqs, data = _library(*LIBS["w2"][:3])
-        index = build_index(data, Config())
+        index, port_index = build_both(data, Config())
         assert index.has_pairs
         base = Config()
     else:
-        seqs, base, index, _ = libs[lib_name]
+        seqs, base, index, _, port_index = libs[lib_name]
     config = dataclasses.replace(base, intersect_level=1, **config_kw)
     paired = engine_kw.get("paired", False)
     kw = dict(chunk_size=64, max_len=L, paired=paired, group_probe=engine_kw.get("group_probe"))
     ref = E.AlignEngine(index, config, **kw)
-    port = T.AlignEngine(index, config, CPU, **kw)
+    port = T.AlignEngine(port_index, config, CPU, **kw)
     assert port.params.group_g == ref.params.group_g == 0
     assert "mono_bucket" in port.tables and "mono_bucket" in ref.tables
     n = 150
@@ -393,8 +456,8 @@ def test_engine_matches_reference_engine(libs, lib_name, config_kw, engine_kw, L
 @pytest.mark.parametrize("max_len, paired", [(64, False), (112, False), (112, True), (256, True)])
 @pytest.mark.parametrize("lib_name", ["w2", "w10"])
 def test_auto_chunk_size_inline_branch_matches_reference(libs, lib_name, max_len, paired):
-    _, _, index, _ = libs[lib_name]
+    _, _, index, _, port_index = libs[lib_name]
     want = E.auto_chunk_size(index, max_len, paired, group_ok=False)
-    assert T.auto_chunk_size(index, max_len, paired, CPU, group_ok=False) == want
+    assert T.auto_chunk_size(port_index, max_len, paired, CPU, group_ok=False) == want
     # an index without group entries takes the inline branch by itself
-    assert T.auto_chunk_size(index, max_len, paired, CPU) == want
+    assert T.auto_chunk_size(port_index, max_len, paired, CPU) == want

@@ -1,6 +1,6 @@
-"""The port never imports jax: its CLI runs with jax made unimportable, and
-no module under nimble_tpu_torch/ imports jax or a jax-importing part of
-nimble_tpu."""
+"""The port never imports jax nor the JAX package: its CLI runs with both
+made unimportable, and no module under nimble_tpu_torch/ (nor chip_smoke.py)
+imports jax or any part of nimble_tpu, not even one without jax in it."""
 import ast
 import pathlib
 import shutil
@@ -9,15 +9,16 @@ import sys
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 GOLD = REPO / "tests" / "goldens"
-FORBIDDEN = ("jax", "nimble_tpu.align", "nimble_tpu.parallel", "nimble_tpu.quant.device")
+FORBIDDEN = ("jax", "nimble_tpu")
 
 SCRIPT = """
 import sys
 sys.modules["jax"] = None  # any import of jax now raises ImportError
+sys.modules["nimble_tpu"] = None  # and so does any import of the JAX package
 from nimble_tpu_torch.__main__ import main
 rc = main(sys.argv[1:])
 loaded = sorted(m for m, v in sys.modules.items() if (m == "jax" or m.startswith("jax.")) and v is not None)
-loaded += sorted(m for m in sys.modules if m.startswith("nimble_tpu.align") or m.startswith("nimble_tpu.parallel"))
+loaded += sorted(m for m, v in sys.modules.items() if (m == "nimble_tpu" or m.startswith("nimble_tpu.")) and v is not None)
 print("LOADED", loaded)
 sys.exit(rc)
 """
