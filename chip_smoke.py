@@ -47,10 +47,13 @@ kernels:
  10. band_tree_expand kernel == its plain torch version, exactly, on the
      (idx_sel, has_sel) the gband step passes it for real reads at the
      main-path shape (the engine `align` builds: L = 112, W = 625,
-     Pw = 32) and at the reference bench's L = 100, and on synthetic
-     tables (B not a multiple of the block, (W, Pw, Q1) = (100, 16, 7) and
-     (70, 8, 5), Pw != 32, Q1 = 40, all-miss reads, out-of-range indices
-     where no position contributes);
+     Pw = 32) and at the reference bench's L = 100, with their page spread
+     (reads with no row, one page, two adjacent pages, a gap of 2), and on
+     synthetic tables (BAND_CASES: B not a multiple of the block,
+     (W, Pw, Q1) = (100, 16, 7) and (70, 8, 5), Pw = 24 and 48, Q1 = 1 and
+     40, all-miss reads, pages {P-1, P} with the P-1 rows first and last,
+     a gap of 2 at the last position only, one contribution on the last
+     page, out-of-range indices with and without a contribution);
  11. the gband path at real size: the single-end and paired runs;
  12. 16,384 of those reads through `align --device cuda` and `--device
      cpu` give byte-identical TSVs on the gband path.
@@ -367,7 +370,8 @@ def drive(label: str, args, n: int, kernels, lo: float = 0.3):
     rows = tsv_rows(out)
     if not lo < rows / n <= 1.0:
         raise AssertionError(f"{label}: pass rate {rows / n:.4f} outside ({lo}, 1]")
-    relay = f", of it the mono table's re-lay {setup['mono_relayout']:.4f}" if "mono_relayout" in setup else ""
+    relay = "".join(f", of it the {what} re-lay {setup[stage]:.4f}" for stage, what in
+                    (("mono_relayout", "mono table's"), ("gband_relayout", "band table's")) if stage in setup)
     say("main", f"{label}: {n} in {wall:.2f} s wall, {n / wall:,.0f}/s, pass rate {rows / n:.4f}, "
         f"launches {counts}; set-up {t_setup:.2f} s (index load {setup.get('index_build', 0.0):.2f}, "
         f"engine build {setup.get('engine_build', 0.0):.2f}{relay}), after it "
@@ -705,13 +709,14 @@ def phase_wide_data(work: str):
     return lib, fq, cmp_fq, r1, r2
 
 
-def check_band(label: str, table, idx_sel, has_sel, W: int, Pw: int):
-    """band_tree_expand == band_tree_expand_reference, exactly. Returns
-    (max |diff|, the kernel's output)."""
+def check_band(label: str, pages, bands, idx_sel, has_sel, W: int):
+    """band_tree_expand == band_tree_expand_reference, exactly, on a
+    re-laid table (pages, bands). Returns (max |diff|, the kernel's
+    output)."""
     from nimble_tpu_torch.align import kernels as K
 
-    got = K.band_tree_expand(table, idx_sel, has_sel, W, Pw)
-    want = K.band_tree_expand_reference(table, idx_sel, has_sel, W, Pw)
+    got = K.band_tree_expand(pages, bands, idx_sel, has_sel, W)
+    want = K.band_tree_expand_reference(pages, bands, idx_sel, has_sel, W)
     torch.cuda.synchronize()
     if got.dtype != want.dtype or got.shape != want.shape:
         raise AssertionError(f"band_tree_expand {got.dtype}{tuple(got.shape)} != plain "
@@ -720,18 +725,31 @@ def check_band(label: str, table, idx_sel, has_sel, W: int, Pw: int):
     if err or not torch.equal(got, want):
         raise AssertionError(f"band_tree_expand != plain version at {label} (max |diff| {err})")
     B, Q1 = idx_sel.shape
-    say("kernel", f"band_tree_expand {label}: B={B} Q1={Q1} W={W} Pw={Pw} rows={table.shape[0]}: equals "
+    say("kernel", f"band_tree_expand {label}: B={B} Q1={Q1} W={W} Pw={bands.shape[1] // 2} rows={bands.shape[0]}: equals "
         f"the plain version (positions with a row {float(has_sel.float().mean()):.3f}, reads with bits "
         f"{float((got != 0).any(dim=1).float().mean()):.3f})")
     return err, got
 
 
-def band_case(B: int, W: int, Pw: int, Q1: int, seed: int, miss: int = 3, n_rows: int = 4096):
+def band_case(B: int, W: int, Pw: int, Q1: int, seed: int, miss: int = 3, kind: str = "mixed",
+              n_rows: int = 4096):
     """A band table on the card (dense random bands, 2% zero, every page
-    present) and per-read positions near one page: at it or one page up,
-    2% two pages up (an empty AND), 30% without a row (index -1 or
-    past the table's end, which the gather clamps), the first `miss` reads
-    without any. Returns (table, idx_sel, has_sel)."""
+    present, rows sorted by page) and per-read positions, the first `miss`
+    reads without any; a position without a row has index -1 or one past
+    the table's end, which the gather clamps. By `kind`:
+      * mixed: near one page, at it or one page up, 2% two pages up (an
+        empty AND), 30% without a row;
+      * low first / low last: every position contributes, at pages
+        {P - 1, P}, the P - 1 ones first or last;
+      * late gap: every position at one page but the last, two pages up;
+      * last page: one contribution per read, on the last page;
+      * clamped: mixed around the first or the last page, with 20% of the
+        contributing positions at index -1 or n_rows + 7 (the first or the
+        last row, whose page is the read's).
+    Returns the table re-laid as the engine ships it (tables.relayout_gband),
+    idx_sel and has_sel: (pages, bands, idx_sel, has_sel)."""
+    from nimble_tpu_torch.align.tables import relayout_gband
+
     rng = np.random.default_rng(seed)
     n_pages = -(-W // Pw)
     page = np.sort(np.arange(n_rows) % n_pages).astype(np.int32)
@@ -740,26 +758,51 @@ def band_case(B: int, W: int, Pw: int, Q1: int, seed: int, miss: int = 3, n_rows
     band[rng.random(n_rows) < 0.02] = 0
     start = np.searchsorted(page, np.arange(n_pages))
     count = np.searchsorted(page, np.arange(n_pages), side="right") - start
-    base = rng.integers(0, n_pages, size=(B, 1))
+    odd = np.arange(B)[:, None] % 2 == 1
+    base = np.where(odd, n_pages - 1, 0) if kind == "clamped" else rng.integers(0, n_pages, size=(B, 1))
     up = (rng.random((B, Q1)) < 0.3).astype(np.int64) + 2 * (rng.random((B, Q1)) < 0.02)
     pg = np.minimum(base + up, n_pages - 1)
-    idx = start[pg] + (rng.random((B, Q1)) * count[pg]).astype(np.int64)
     has = rng.random((B, Q1)) < 0.7
+    if kind in ("low first", "low last"):
+        low = np.arange(Q1) < max(Q1 // 2, 1)
+        pg = rng.integers(1, n_pages, size=(B, 1)) - (low if kind == "low first" else low[::-1])
+        has[:] = True
+    elif kind == "late gap":
+        pg = np.repeat(rng.integers(0, n_pages - 2, size=(B, 1)), Q1, axis=1)
+        pg[:, -1] += 2
+        has[:] = True
+    elif kind == "last page":
+        pg[:] = n_pages - 1
+        has[:] = False
+        has[np.arange(B), rng.integers(0, Q1, size=B)] = True
     has[:miss] = False
+    idx = start[pg] + (rng.random((B, Q1)) * count[pg]).astype(np.int64)
+    if kind == "clamped":
+        clamp = has & (rng.random((B, Q1)) < 0.2) & (pg == base)
+        idx = np.where(clamp, np.where(odd, n_rows + 7, -1), idx)
     idx = np.where(has, idx, np.where(rng.random((B, Q1)) < 0.5, -1, n_rows + 7)).astype(np.int32)
     dev = torch.device("cuda")
-    table = np.concatenate([page[:, None], band], axis=1)
-    return tuple(torch.from_numpy(a).to(dev) for a in (table, idx, has))
+    table = torch.from_numpy(np.concatenate([page[:, None], band], axis=1)).to(dev)
+    return (*relayout_gband(table), *(torch.from_numpy(a).to(dev) for a in (idx, has)))
 
 
 BAND_CASES = [
-    # label, B, W, Pw, Q1, reads without a row
-    ("B=4099 (not a multiple of the 8-read block)", 4099, 625, 32, 16, 3),
-    ("(W, Pw, Q1) = (100, 16, 7)", 4096, 100, 16, 7, 3),
-    ("(W, Pw, Q1) = (70, 8, 5)", 4096, 70, 8, 5, 3),
-    ("Pw=24 (W not a multiple of Pw)", 4096, 625, 24, 16, 3),
-    ("Q1=40 (256 bp reads)", 4096, 625, 32, 40, 3),
-    ("all-miss reads", 1000, 625, 32, 16, 1000),
+    # label, B, W, Pw, Q1, reads without a row, kind
+    ("B=4099 (not a multiple of the 8-read block)", 4099, 625, 32, 16, 3, "mixed"),
+    ("(W, Pw, Q1) = (100, 16, 7)", 4096, 100, 16, 7, 3, "mixed"),
+    ("(W, Pw, Q1) = (70, 8, 5)", 4096, 70, 8, 5, 3, "mixed"),
+    ("Pw=24 (W not a multiple of Pw)", 4096, 625, 24, 16, 3, "mixed"),
+    ("Q1=40 (256 bp reads)", 4096, 625, 32, 40, 3, "mixed"),
+    ("Pw=48 (frames wider than 64 words)", 4096, 625, 48, 16, 3, "mixed"),
+    ("all-miss reads", 1000, 625, 32, 16, 1000, "mixed"),
+    ("Q1=1", 4096, 625, 32, 1, 3, "mixed"),
+    ("pages {P-1, P}, the P-1 rows first", 4096, 625, 32, 16, 3, "low first"),
+    ("pages {P-1, P}, the P-1 rows last", 4096, 625, 32, 16, 3, "low last"),
+    ("Q1=40, pages {P-1, P}, the P-1 rows last", 4096, 625, 32, 40, 3, "low last"),
+    ("a gap of 2 at the last position only", 4096, 625, 32, 16, 3, "late gap"),
+    ("one contribution on the last, partial page", 4096, 625, 32, 16, 3, "last page"),
+    ("one contribution on the last page (Pw=24: one word)", 4096, 625, 24, 16, 3, "last page"),
+    ("contributing indices -1 and n_rows+7 (clamped)", 4096, 625, 32, 16, 3, "clamped"),
 ]
 
 
@@ -801,15 +844,16 @@ def phase_wide_kernel(lib: str, fq: str):
     for k in ("gband_bucket", "gband_table"):
         if not np.array_equal(again[k], host[k]):
             raise AssertionError(f"the sidecar's {k} differs from the fresh build")
-    table = eng.tables["gband_table"]
+    bands = eng.tables["gband_band"]
     bucket = eng.tables["gband_bucket"]
     W, Pw = TT.table_words(eng.tables), eng.band_pw
     say("wide", f"W={W} Pw={Pw} g={index.pair_g} features={index.n_features} classes={index.n_classes} "
         f"group entries={index.pair_hi.shape[0]}; gband_bucket {tuple(bucket.shape)} = "
-        f"{bucket.numel() * 4 / 1e9:.2f} GB, gband_table {tuple(table.shape)} = {table.numel() * 4 / 1e6:.1f} MB, "
+        f"{bucket.numel() * 4 / 1e9:.2f} GB, gband_band {tuple(bands.shape)} = {bands.numel() * 4 / 1e6:.1f} MB, "
         f"stash {eng.tables['gband_stash_hi'].shape[0]}; sidecar {os.path.getsize(side) / 1e9:.2f} GB")
     say("wide", f"engine build by part: index load {t_load:.2f} s (again: {t_reload:.2f} s), gband host "
-        f"build + sidecar write {t_build:.2f} s, sidecar load {t_side:.2f} s, tables to the card {t_h2d:.2f} s")
+        f"build + sidecar write {t_build:.2f} s, sidecar load {t_side:.2f} s, tables to the card {t_h2d:.2f} s "
+        f"(of it the band table's re-lay on the card {stage_wall('gband_relayout'):.4f} s, stage log)")
     del again, host, fresh
 
     errs = []
@@ -820,11 +864,15 @@ def phase_wide_kernel(lib: str, fq: str):
             eng = TE.AlignEngine(index, r.config, dev, chunk_size=None, max_len=max_len)
         B, L = eng.chunk_size, eng.max_len
         args = KB.captured(eng, *KB.fastq_head(fq, B, L), "band_tree_expand")
-        _, idx_sel, has_sel, _, _ = args
+        pages, _, idx_sel, has_sel, _ = args
         label = "main path" if max_len != READ_LEN else "L=100 (the reference bench's width)"
         say("kernel", f"band_tree_expand {label} arguments (20k library): B={B} L={L} "
             f"Q1={idx_sel.shape[1]} W={W} Pw={Pw}")
         errs.append(check_band(label, *args)[0])
+        sp = KB.band_spread(pages, idx_sel, has_sel)
+        say("kernel", f"band_tree_expand {label}: page spread over reads: no row {sp['no_row']:.4f}, one page "
+            f"{sp['one_page']:.4f}, two adjacent pages {sp['adjacent']:.4f}, a gap of 2 or more {sp['gap2']:.4f}; "
+            f"{sp['mean_rows']:.2f} contributing positions a read")
         t_ms = KB.device_ms(lambda: K.band_tree_expand(*args))
         call_ms = cuda_ms(lambda: K.band_tree_expand(*args))
         t_plain = cuda_ms(lambda: K.band_tree_expand_reference(*args))
@@ -839,12 +887,16 @@ def phase_wide_kernel(lib: str, fq: str):
             ms, plain_ms, bound = t_ms, t_plain, t_bound
         eng = None
         del args, idx_sel, has_sel
-    del r, index, table, bucket
-    for i, (label, sB, sW, sPw, sQ1, miss) in enumerate(BAND_CASES):
-        t, ix, hs = band_case(sB, sW, sPw, sQ1, seed=i, miss=miss)
-        err, got = check_band(label, t, ix, hs, sW, sPw)
+    del r, index, bands, bucket
+    for i, (label, sB, sW, sPw, sQ1, miss, kind) in enumerate(BAND_CASES):
+        err, got = check_band(label, *band_case(sB, sW, sPw, sQ1, seed=i, miss=miss, kind=kind), sW)
         if got[:miss].any():
             raise AssertionError(f"band_tree_expand {label}: reads without a row have bits")
+        lit = (got != 0).any(dim=1)
+        if kind == "late gap" and lit.any():
+            raise AssertionError(f"band_tree_expand {label}: a read with a gap of 2 has bits")
+        if kind != "late gap" and miss < sB and not lit.any():
+            raise AssertionError(f"band_tree_expand {label}: no read has bits, so nothing was compared")
         errs.append(err)
     torch.cuda.empty_cache()
     return max(errs), ms, plain_ms, bound

@@ -553,8 +553,7 @@ def _score_mate_groupband(codes, lens, tables, p: AlignParams):
     u = use_fwd[:, None]
     idx_sel = torch.where(fwd_cc == u, idx_s, idx_d)
     has_sel = torch.where(u, mask_f, mask_r) != 0
-    table = tables["gband_table"]
-    bits = band_tree_expand(table, idx_sel, has_sel, table_words(tables), (table.shape[1] - 1) // 2)
+    bits = band_tree_expand(tables["gband_page"], tables["gband_band"], idx_sel, has_sel, table_words(tables))
     return bits, torch.where(use_fwd, score_f, score_r), score_f, score_r
 
 
@@ -765,7 +764,7 @@ class AlignEngine:
         gband = "gband_bucket" in self.tables
         if "group_bucket" in self.tables or gband:
             self.params = replace(self.params, group_g=index.pair_g)
-        self.band_pw = (int(self.tables["gband_table"].shape[1]) - 1) // 2 if gband else 0
+        self.band_pw = int(self.tables["gband_band"].shape[1]) // 2 if gband else 0
 
         if chunk_size is None:
             chunk_size = auto_chunk_size(index, self.max_len, paired, self.device, group_ok,

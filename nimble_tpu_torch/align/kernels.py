@@ -11,11 +11,15 @@ mono_probe: the mono-table row gather, slot select, stash sweep and
 orientation select that the reference splits between XLA and
 kernels.py:mono_select_pallas.
 
-`band_tree_expand(gband_table, idx_sel, has_sel, W, Pw)` returns the (B, W)
-bits of the wide gband path: the band-row gather of
+`band_tree_expand(gband_page, gband_band, idx_sel, has_sel, W)` returns the
+(B, W) bits of the wide gband path: the band-row gather of
 nimble_tpu/align/engine.py:_score_mate_groupband followed by what
 kernels.py:band_tree_expand_pallas computes — the AND of each read's
-page-banded rows and its expansion to W words.
+page-banded rows and its expansion to W words — on the gband table re-laid
+on the card as a page vector and aligned band rows (tables.relayout_gband).
+The kernel computes the fold in closed form from the highest and lowest
+contributing page (one page pass and one band pass per read); the plain
+version keeps the reference's halving tree.
 
 On CUDA tensors each wrapper launches its hand-written sm_90a kernel
 (csrc/kmer_keys.cu, csrc/mono_probe.cu, csrc/band_tree_expand.cu), built
@@ -222,7 +226,8 @@ def _load():
             lib.nt_band_tree_expand.restype = ctypes.c_int
             lib.nt_band_tree_expand.argtypes = [
                 ctypes.c_int,  # device
-                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,  # table, n_rows, Pw
+                ctypes.c_void_p, ctypes.c_void_p,  # pages, bands
+                ctypes.c_int64, ctypes.c_int,  # n_rows, Pw
                 ctypes.c_void_p, ctypes.c_void_p,  # idx_sel, has_sel
                 ctypes.c_int64, ctypes.c_int, ctypes.c_int,  # B, Q1, W
                 ctypes.c_void_p,  # out
@@ -364,11 +369,6 @@ def mono_probe(bucket: torch.Tensor, h1: torch.Tensor, hi_i: torch.Tensor,
 
 mono_probe.launches = 0
 
-# warps (reads) per block of the band_tree_expand kernel, each with a
-# 2 Pw-word accumulator in shared memory; the smem cap is the H100's
-BAND_TREE_WARPS = 8
-BAND_TREE_MAX_SMEM = 227 * 1024
-
 
 def band_combine(p1, b1, h1, p2, b2, h2, Pw: int):
     """engine.py:_band_combine — AND of two page-banded values (page (..,),
@@ -427,56 +427,58 @@ def expand_band(page, band, has, W: int, Pw: int):
     return torch.where(has[:, None], out, zero)
 
 
-def band_tree_expand_reference(gband_table: torch.Tensor, idx_sel: torch.Tensor,
-                               has_sel: torch.Tensor, W: int, Pw: int) -> torch.Tensor:
-    """The plain torch version of the kernel: the (B, Q1, 1 + 2 Pw) row
-    gather of engine.py:_score_mate_groupband's XLA branch (indices clamped
-    into the table, as a jnp gather clamps them), then band_tree and
-    expand_band."""
-    idx = idx_sel.long().clamp(0, gband_table.shape[0] - 1)
-    brow = gband_table[idx]
-    page, band, has = band_tree(brow[..., 0], brow[..., 1:], has_sel, Pw)
+def band_tree_expand_reference(gband_page: torch.Tensor, gband_band: torch.Tensor, idx_sel: torch.Tensor,
+                               has_sel: torch.Tensor, W: int) -> torch.Tensor:
+    """The plain torch version of the kernel, on the same re-laid table: the
+    (B, Q1) page and (B, Q1, 2 Pw) band gather of engine.py:
+    _score_mate_groupband's XLA branch (indices clamped into the table, as a
+    jnp gather clamps them), then band_tree and expand_band."""
+    Pw = gband_band.shape[1] // 2
+    idx = idx_sel.long().clamp(0, gband_band.shape[0] - 1)
+    page, band, has = band_tree(gband_page[idx], gband_band[idx], has_sel, Pw)
     return expand_band(page, band, has, W, Pw)
 
 
-def band_tree_expand(gband_table: torch.Tensor, idx_sel: torch.Tensor,
-                     has_sel: torch.Tensor, W: int, Pw: int) -> torch.Tensor:
-    """The fused band gather + intersection + expansion of the gband path.
-    gband_table (n_rows, 1 + 2 Pw) int32 rows [page | band]; idx_sel (B, Q1)
-    int32 row index per probe position (any value where has_sel is False);
-    has_sel (B, Q1) bool -> bits (B, W) int32. Pw is a multiple of 8 with
-    3 Pw <= W, as the table builder makes it. Every tensor must be
+def band_tree_expand(gband_page: torch.Tensor, gband_band: torch.Tensor, idx_sel: torch.Tensor,
+                     has_sel: torch.Tensor, W: int) -> torch.Tensor:
+    """The fused band gather + intersection + expansion of the gband path,
+    on the gband table as device_tables ships it (tables.relayout_gband):
+    gband_page (n_rows,) int32 and gband_band (n_rows, 2 Pw) int32, Pw a
+    multiple of 8 with 3 Pw <= W, as the table builder makes it; idx_sel
+    (B, Q1) int32 row index per probe position (any value where has_sel is
+    False); has_sel (B, Q1) bool -> bits (B, W) int32. Every tensor must be
     contiguous and on one device."""
-    if Pw < 8 or Pw % 8 or 3 * Pw > W:
-        raise ValueError(f"Pw must be a multiple of 8 with 3 * Pw <= W, got Pw={Pw} W={W}")
-    E = 1 + 2 * Pw
-    if (gband_table.dim() != 2 or gband_table.dtype != torch.int32
-            or gband_table.shape[1] != E or gband_table.shape[0] < 1):
-        raise ValueError(f"gband_table must be (n_rows >= 1, {E}) int32, got "
-                         f"{tuple(gband_table.shape)} {gband_table.dtype}")
+    if gband_band.dim() != 2 or gband_band.dtype != torch.int32 or gband_band.shape[0] < 1:
+        raise ValueError(f"gband_band must be (n_rows >= 1, 2 Pw) int32, got "
+                         f"{tuple(gband_band.shape)} {gband_band.dtype}")
+    Pw = gband_band.shape[1] // 2
+    if gband_band.shape[1] % 2 or Pw < 8 or Pw % 8 or 3 * Pw > W:
+        raise ValueError(f"Pw must be a multiple of 8 with 3 * Pw <= W, got bands of "
+                         f"{gband_band.shape[1]} words and W={W}")
+    if gband_page.dtype != torch.int32 or gband_page.shape != gband_band.shape[:1]:
+        raise ValueError(f"gband_page must be ({gband_band.shape[0]},) int32, got "
+                         f"{tuple(gband_page.shape)} {gband_page.dtype}")
     if idx_sel.dim() != 2 or idx_sel.dtype != torch.int32:
         raise ValueError(f"idx_sel must be (B, Q1) int32, got {tuple(idx_sel.shape)} {idx_sel.dtype}")
     if has_sel.dtype != torch.bool or has_sel.shape != idx_sel.shape:
         raise ValueError(f"has_sel must be {tuple(idx_sel.shape)} bool, got "
                          f"{tuple(has_sel.shape)} {has_sel.dtype}")
-    tensors = (gband_table, idx_sel, has_sel)
-    dev = gband_table.device
+    tensors = (gband_page, gband_band, idx_sel, has_sel)
+    dev = gband_band.device
     if any(t.device != dev for t in tensors):
         raise ValueError(f"band_tree_expand needs every tensor on one device, got {[str(t.device) for t in tensors]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("band_tree_expand needs contiguous tensors")
     if dev.type == "cpu":
-        return band_tree_expand_reference(gband_table, idx_sel, has_sel, W, Pw)
+        return band_tree_expand_reference(gband_page, gband_band, idx_sel, has_sel, W)
     if dev.type != "cuda":
         raise ValueError(f"band_tree_expand runs on cuda or cpu tensors, got {dev}")
-    if BAND_TREE_WARPS * 2 * Pw * 4 > BAND_TREE_MAX_SMEM:
-        raise ValueError(f"Pw={Pw} needs more shared memory than a block has")
     lib = _load()
     B, Q1 = idx_sel.shape
     out = torch.empty((B, W), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.nt_band_tree_expand(
-        _device_index(dev), gband_table.data_ptr(), gband_table.shape[0], Pw,
+        _device_index(dev), gband_page.data_ptr(), gband_band.data_ptr(), gband_band.shape[0], Pw,
         idx_sel.data_ptr(), has_sel.data_ptr(), B, Q1, W, out.data_ptr(), stream,
     )
     if err != 0:

@@ -30,6 +30,9 @@ Gband (wide, W > 16) tables, single-hash and dense:
   more band rows or g > 6, [hi x S | lo x S | idx_s x S | idx_d x S |
   mask x S]; gband_table half rows [page | band (2 Pw)], one per distinct
   pre-ANDed (k+g-1)-mer payload and orientation; the stash as five planes.
+  The table is shipped re-laid (`relayout_gband`, the band_tree_expand
+  kernel's): a page vector `gband_page` (n_rows,) and the band rows
+  `gband_band` (n_rows, 2 Pw), 256 bytes each at Pw = 32.
 """
 from __future__ import annotations
 
@@ -611,7 +614,24 @@ def _gband_to_device(np_tables, W: int, device) -> Dict[str, torch.Tensor]:
     if width != MONO_SLOTS * (4 if "gband_packedrow" in np_tables else 5):
         raise ValueError(f"gband bucket rows of {width} words do not match the packed-row marker")
     as_t = lambda a: torch.from_numpy(np.require(a, np.int32, ["C", "W"])).to(device)
-    return {**{k: as_t(np_tables[k]) for k in GBAND_KEYS}, "gband_words": int(W)}
+    out = {k: as_t(np_tables[k]) for k in GBAND_KEYS if k != "gband_table"}
+    table = as_t(np_tables["gband_table"])
+    with runlog().stage("gband_relayout", rows=table.shape[0], bytes=table.numel() * 4, device=str(table.device)):
+        if table.is_cuda:  # the copy to the card stays out of the stage
+            torch.cuda.synchronize(table.device)
+        out["gband_page"], out["gband_band"] = relayout_gband(table)
+        if table.is_cuda:
+            torch.cuda.synchronize(table.device)
+    return {**out, "gband_words": int(W)}
+
+
+def relayout_gband(table: torch.Tensor):
+    """Split a (n_rows, 1 + 2 Pw) gband table of [page | band] rows into its
+    page vector (n_rows,) and its band rows (n_rows, 2 Pw), new contiguous
+    tensors on the table's device: a band row starts on a 4 Pw-byte
+    boundary, so a warp's read of half a row is whole 32-byte sectors.
+    Returns (page, band)."""
+    return table[:, 0].contiguous(), table[:, 1:].contiguous()
 
 
 # rows of the mono table re-laid at a time (bounds the transient copy)
@@ -634,7 +654,8 @@ def tables_from_reference(np_tables, device, owned: bool = False) -> Dict[str, t
     """The reference's `_device_tables(index)` output, taken as numpy arrays,
     -> the port's tensors on `device`, for the path the reference's
     `_score_mate` would take on them: group, else gband (W from its
-    `class_bits` placeholder), else mono (re-laid slot-major), else
+    `class_bits` placeholder; its band table split by relayout_gband, the
+    run log's `gband_relayout` stage), else mono (re-laid slot-major), else
     two-choice. Only that path's entries are carried. The mono table is
     re-laid on `device`, as the run log's `mono_relayout` stage; on the
     CPU, in a copy of the caller's array, unless `owned` says the arrays

@@ -3,6 +3,7 @@ file sits in, on inputs taken from the port's main paths.
 
   python3 -m nimble_tpu_torch.kernel_bench prepare WORK
   python3 -m nimble_tpu_torch.kernel_bench run WORK
+  python3 -m nimble_tpu_torch.kernel_bench variants WORK
 
 `prepare` writes the workloads into WORK with the port's generator
 (bench_data.py): HLA-100 with 2,097,152 single-end reads, a copy of it for
@@ -26,7 +27,11 @@ WORK/workloads.json.
     mono_probe is timed once more on the same planes with every window
     invalid: its streams alone, no table reads;
   * the 20k engine's set-up by part: index load, gband sidecar load, copy
-    to the card.
+    to the card; the page spread of band_tree_expand's arguments.
+
+`variants` prints one JSON line: band_tree_expand on those arguments
+against experimental variants of it, built from csrc/band_tree_expand.cu
+with a patch (`band_variants`).
 
 `run` calls only what the port has had since its gband slice and takes
 each table in the layout that checkout's engine ships, so this file, copied
@@ -138,9 +143,164 @@ def kernel_bytes(name: str, args) -> int:
     if name == "mono_probe":
         bucket, h1, hi, lo, _fc, _pal, valid, stash, W = args
         return mono_probe_bytes(hi.numel(), W, mono_table_bytes(bucket, h1, hi, lo, valid, W) + stash.numel() * 4)
-    table, idx_sel, has_sel, W, _pw = args
+    pages, idx_sel, has_sel, W, Pw = band_args(args)
     rows = int(torch.unique(idx_sel[has_sel]).numel())
-    return band_tree_expand_bytes(idx_sel.shape[0], idx_sel.shape[1], W, rows * table.shape[1] * 4)
+    return band_tree_expand_bytes(idx_sel.shape[0], idx_sel.shape[1], W, rows * (1 + 2 * Pw) * 4)
+
+
+def band_args(args):
+    """(page vector, idx_sel, has_sel, W, Pw) of band_tree_expand's
+    arguments, from the re-laid table (pages, bands, idx_sel, has_sel, W) or
+    from the [page | band] table of older checkouts (table, idx_sel,
+    has_sel, W, Pw)."""
+    if args[0].dim() == 1:
+        pages, bands, idx_sel, has_sel, W = args
+        return pages, idx_sel, has_sel, W, bands.shape[1] // 2
+    table, idx_sel, has_sel, W, Pw = args
+    return table[:, 0], idx_sel, has_sel, W, Pw
+
+
+def band_spread(pages, idx_sel, has_sel) -> dict:
+    """The page spread band_tree_expand's design depends on, over reads:
+    the share with no contributing position, with all at one page, at two
+    adjacent pages and with a gap of 2 or more (an empty AND, no band word
+    read), and the mean count of contributing positions."""
+    import torch
+
+    pages = pages[idx_sel.long().clamp(0, pages.shape[0] - 1)].long()
+    top = torch.where(has_sel, pages, torch.iinfo(torch.int64).min).amax(dim=1)
+    low = torch.where(has_sel, pages, torch.iinfo(torch.int64).max).amin(dim=1)
+    some = has_sel.any(dim=1)
+    gap = torch.where(some, top - low, -1)
+    share = lambda m: float(m.float().mean())
+    return {"no_row": share(~some), "one_page": share(gap == 0), "adjacent": share(gap == 1),
+            "gap2": share(gap >= 2), "mean_rows": float(has_sel.sum(dim=1).float().mean())}
+
+
+def _band_variant_lib(patch):
+    """csrc/band_tree_expand.cu with `patch` applied to its text, built
+    alone with the library's nvcc flags and loaded."""
+    import ctypes
+    import subprocess
+    import tempfile
+
+    from nimble_tpu_torch.align import kernels as K
+
+    with open(os.path.join(K.CSRC, "band_tree_expand.cu")) as f:
+        src = patch(f.read())
+    os.makedirs(K.BUILD_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=K.BUILD_DIR)
+    cu, so = os.path.join(tmp, "variant.cu"), os.path.join(tmp, "variant.so")
+    with open(cu, "w") as f:
+        f.write(src)
+    subprocess.run([K._nvcc(), *K.NVCC_FLAGS, "-shared", "-o", so, cu], check=True, capture_output=True)
+    lib = ctypes.CDLL(so)
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    tail = [i64, i32, p, p, i64, i32, i32, p, p]  # n_rows, Pw, idx, has, B, Q1, W, out, stream
+    for name, head in (("nt_band_tree_expand", [i32, p, p]), ("nt_band_tree_expand_table", [i32, p])):
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.restype, fn.argtypes = ctypes.c_int, head + tail
+    return lib
+
+
+def _replace(src: str, old: str, new: str) -> str:
+    if old not in src:
+        raise AssertionError(f"band variant: {old!r} is not in csrc/band_tree_expand.cu")
+    return src.replace(old, new)
+
+
+# ordinary (write-back) stores instead of streaming ones
+_ORDINARY_STORES = lambda s: _replace(_replace(s, "__stcs(", "ordinary_store("), "namespace {\n", """namespace {
+template <class T> __device__ __forceinline__ void ordinary_store(T* p, T v) { *p = v; }
+""")
+# the zeros stored 4 bytes at a time, one word a lane
+_SCALAR_ZEROS = lambda s: _replace(_replace(s, "store_outside(out_r", "store_outside_scalar(out_r"),
+                                   "__global__ void", """__device__ void store_outside_scalar(int32_t* out_r, int W, int f0,
+                                                                 int nf, int lane) {
+  for (int w = lane; w < W; w += 32) {
+    if (static_cast<unsigned>(w - f0) >= static_cast<unsigned>(nf)) __stcs(out_r + w, 0);
+  }
+}
+
+__global__ void""")
+# the reference's [page | band] rows of 1 + 2 Pw words, one table
+_INTERLEAVED_TABLE = lambda s: s + """
+extern "C" int nt_band_tree_expand_table(int device, const void* table, int64_t n_rows, int Pw, const void* idx,
+                                         const void* has, int64_t B, int Q1, int W, void* out, void* stream) {
+  const int32_t* rows = static_cast<const int32_t*>(table);
+  const int64_t E = 1 + 2 * static_cast<int64_t>(Pw);
+  return launch(device, Rows{rows, rows + 1, E, E, n_rows}, Pw, idx, has, B, Q1, W, out, stream);
+}
+"""
+
+
+def band_variants(args, rounds: int = 2) -> dict:
+    """band_tree_expand and experimental variants of it, on the same
+    arguments, timed in turn `rounds` times (device_ms, ms):
+      * kernel: the committed kernel, on the re-laid table;
+      * stores only: Q1 = 0, so the kernel writes the zero output and reads
+        no table;
+      * page pass only: one more position per read at a row whose page lies
+        past the output, so every page is read, the frame is empty and no
+        band word is read;
+      * ordinary stores: the kernel with write-back stores for st.global.cs;
+      * 4-byte zeros: the kernel storing the zeros one word a lane, not 16
+        bytes where they are aligned;
+      * interleaved table: the kernel reading the reference's [page | band]
+        rows of 1 + 2 Pw words, the table as it was before the re-lay;
+      * zero_ of the output: PyTorch's fill of a (B, W) int32 tensor, the
+        card's own rate for the output's bytes.
+    The variants' outputs are checked against the kernel's."""
+    import torch
+
+    from nimble_tpu_torch.align import kernels as K
+
+    pages, bands, idx, has, W = args
+    n_rows, Pw = bands.shape[0], bands.shape[1] // 2
+    B, Q1 = idx.shape
+    dev = bands.device
+    want = K.band_tree_expand(*args)
+    zeros = torch.zeros_like(want)
+    page_args = (torch.cat([pages, torch.tensor([1 << 30], dtype=torch.int32, device=dev)]),
+                 torch.cat([bands, torch.zeros_like(bands[:1])]),
+                 torch.cat([idx, torch.full((B, 1), n_rows, dtype=torch.int32, device=dev)], dim=1).contiguous(),
+                 torch.cat([has, torch.ones((B, 1), dtype=torch.bool, device=dev)], dim=1).contiguous(), W)
+    none = (pages, bands, idx[:, :0].contiguous(), has[:, :0].contiguous(), W)
+    ordinary = _band_variant_lib(_ORDINARY_STORES).nt_band_tree_expand
+    scalar = _band_variant_lib(_SCALAR_ZEROS).nt_band_tree_expand
+    interleaved = _band_variant_lib(_INTERLEAVED_TABLE).nt_band_tree_expand_table
+    table = torch.cat([pages[:, None], bands], dim=1)
+    out = torch.empty_like(want)
+    stream = lambda: torch.cuda.current_stream(dev).cuda_stream
+    d = K._device_index(dev)
+
+    def call(fn, *head):
+        err = fn(d, *head, n_rows, Pw, idx.data_ptr(), has.data_ptr(), B, Q1, W, out.data_ptr(), stream())
+        if err != 0:
+            raise RuntimeError(f"band variant launch failed: cudaError {err}")
+        return out
+
+    variants = {
+        "kernel": lambda: K.band_tree_expand(*args),
+        "stores only": lambda: K.band_tree_expand(*none),
+        "page pass only": lambda: K.band_tree_expand(*page_args),
+        "ordinary stores": lambda: call(ordinary, pages.data_ptr(), bands.data_ptr()),
+        "4-byte zeros": lambda: call(scalar, pages.data_ptr(), bands.data_ptr()),
+        "interleaved table": lambda: call(interleaved, table.data_ptr()),
+        "zero_ of the output": lambda: out.zero_(),
+    }
+    for name, fn in variants.items():
+        res = fn().clone()
+        torch.cuda.synchronize()
+        expect = zeros if name in ("stores only", "page pass only", "zero_ of the output") else want
+        if not torch.equal(res, expect):
+            raise AssertionError(f"band variant {name!r} gives other bits")
+    times = {name: [] for name in variants}
+    for _ in range(rounds):
+        for name, fn in variants.items():
+            times[name].append(device_ms(fn))
+    return times
 
 
 def fastq_head(fq: str, B: int, L: int):
@@ -232,6 +392,7 @@ def align_run(args, n: int) -> dict:
     setup = stage.get("index_build", 0.0) + stage.get("engine_build", 0.0)
     return {"n": n, "wall_s": wall, "per_s": n / wall, "index_load_s": stage.get("index_build"),
             "engine_build_s": stage.get("engine_build"), "mono_relayout_s": stage.get("mono_relayout"),
+            "gband_relayout_s": stage.get("gband_relayout"),
             "after_setup_per_s": n / max(wall - setup, 1e-9)}
 
 
@@ -330,13 +491,33 @@ def run(work: str) -> dict:
     out["wide_setup"] = {"index_load_s": t_load, "sidecar_load_s": t_side, "to_card_s": t_h2d,
                          "rebuilt_in_run": stamps != [os.path.getmtime(idx_file), os.path.getmtime(side_file)]}
     codes, lens = fastq_head(p["wide_fq"], eng.chunk_size, eng.max_len)
-    kern["band_tree_expand"] = time_kernel("band_tree_expand", captured(eng, codes, lens, "band_tree_expand"))
+    args = captured(eng, codes, lens, "band_tree_expand")
+    kern["band_tree_expand"] = time_kernel("band_tree_expand", args)
+    kern["band_tree_expand"]["spread"] = band_spread(*band_args(args)[:3])
     return out
+
+
+def variants(work: str) -> dict:
+    """band_variants on the arguments the 20k engine passes band_tree_expand
+    for the first chunk of the workload's reads, with their page spread."""
+    import torch
+
+    from nimble_tpu_torch.align import kernels as K
+
+    with open(os.path.join(work, "workloads.json")) as f:
+        p = json.load(f)
+    K.build()
+    _, eng = engine(p["wide_lib"])
+    codes, lens = fastq_head(p["wide_fq"], eng.chunk_size, eng.max_len)
+    args = captured(eng, codes, lens, "band_tree_expand")
+    del eng
+    return {"device": torch.cuda.get_device_name(0), "args": [list(a.shape) for a in args[:4]] + [args[4]],
+            "spread": band_spread(*band_args(args)[:3]), "ms": band_variants(args)}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("step", choices=("prepare", "run"))
+    ap.add_argument("step", choices=("prepare", "run", "variants"))
     ap.add_argument("work", help="directory of the workloads (made by prepare)")
     args = ap.parse_args(argv)
     import torch
@@ -349,7 +530,7 @@ def main(argv=None) -> int:
         prepare(args.work)
         print(json.dumps({"prepared": args.work, "s": time.perf_counter() - t0}), flush=True)
     else:
-        print(json.dumps(run(args.work)), flush=True)
+        print(json.dumps((run if args.step == "run" else variants)(args.work)), flush=True)
     return 0
 
 

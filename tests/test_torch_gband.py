@@ -9,6 +9,7 @@ reference sends to its other wide paths are refused. Everything compared is
 integer except one float32 compare, which both sides make in float32."""
 import copy
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -182,13 +183,30 @@ def test_gband_sidecar_loads_in_both_packages(fam, tmp_path, monkeypatch, writer
     _assert_tables_equal(TT.groupband_tables(PortKmerIndex.load(path)), fresh)
 
 
-def test_device_tables_ship_only_the_gband_step(fam):
+def test_device_tables_ship_only_the_gband_step(fam, tmp_path, monkeypatch):
+    """The gband keys the step reads, the table re-laid as its page vector
+    and band rows (`relayout_gband`, the run log's `gband_relayout` stage),
+    the reference's arrays otherwise."""
+    from nimble_tpu_torch import observability
+
     _, _, _, ref_np, tables, index = fam
+    log = observability.RunLog(str(tmp_path / "run.jsonl"))
+    monkeypatch.setattr(observability, "_GLOBAL", log)
     dev = TT.device_tables(index, CPU)
-    assert set(dev) == set(TT.GBAND_KEYS) | {"gband_words"}
+    log.close()
+    assert set(dev) == (set(TT.GBAND_KEYS) - {"gband_table"}) | {"gband_page", "gband_band", "gband_words"}
     assert TT.table_words(dev) == TT.table_words(tables) == 75
-    for k in TT.GBAND_KEYS:
+    for k in set(TT.GBAND_KEYS) - {"gband_table"}:
         assert torch.equal(dev[k], tables[k]) and np.array_equal(dev[k].numpy(), ref_np[k]), k
+    table = ref_np["gband_table"]
+    assert dev["gband_band"].shape == (table.shape[0], 2 * 16) and dev["gband_band"].is_contiguous()
+    assert np.array_equal(dev["gband_page"].numpy(), table[:, 0])
+    assert np.array_equal(dev["gband_band"].numpy(), table[:, 1:])
+    assert torch.equal(tables["gband_band"], dev["gband_band"])
+    events = [json.loads(ln) for ln in (tmp_path / "run.jsonl").read_text().splitlines()]
+    assert [(e["event"], e["stage"]) for e in events] == [("stage_start", "gband_relayout"),
+                                                          ("stage_end", "gband_relayout")]
+    assert events[0]["bytes"] == table.nbytes and events[1]["wall_s"] >= 0
 
 
 # --- the band intersection: plain version, Pallas, sequential fold ------
@@ -235,16 +253,16 @@ def test_band_tree_expand_plain_version_matches_reference(W, Pw, Q1):
     pallas = np.asarray(band_tree_expand_pallas(jnp.asarray(packed), W, Pw, interpret=True))
     assert np.array_equal(want, pallas)
     table, idx = _as_table(page, band)
-    got = K.band_tree_expand(table, idx, torch.from_numpy(has), W, Pw)
+    got = K.band_tree_expand(*TT.relayout_gband(table), idx, torch.from_numpy(has), W)
     assert got.dtype == torch.int32 and got.shape == (page.shape[0], W)
     assert np.array_equal(got.numpy(), want)
-    assert torch.equal(K.band_tree_expand_reference(table, idx, torch.from_numpy(has), W, Pw), got)
+    assert torch.equal(K.band_tree_expand_reference(*TT.relayout_gband(table), idx, torch.from_numpy(has), W), got)
     assert not want[:3].any() and want[3:].any()
 
 
 def sequential_fold(page, band, has, W: int, Pw: int):
-    """The CUDA kernel's algorithm in plain torch: positions folded one
-    after another into one accumulator (not a halving tree), then expanded."""
+    """Positions folded one after another into one accumulator (not a
+    halving tree), then expanded, as the first CUDA kernel computed it."""
     B, Q1 = page.shape
     acc_p = torch.zeros(B, dtype=torch.int32)
     acc_b = torch.zeros((B, 2 * Pw), dtype=torch.int32)
@@ -254,13 +272,44 @@ def sequential_fold(page, band, has, W: int, Pw: int):
     return K.expand_band(acc_p, acc_b, acc_h, W, Pw)
 
 
+def two_pass(page, band, has, W: int, Pw: int):
+    """The CUDA kernel's algorithm (csrc/band_tree_expand.cu) in numpy, read
+    by read: the page pass (any contribution, the highest page P, the
+    lowest m), the empty and gap decisions, the band pass (the AND of the
+    full bands when m == P, else of the half rows that meet at page P), and
+    the W words written by an unsigned offset compare against the frame."""
+    page, band, has = page.numpy(), band.numpy(), has.numpy()
+    n_pages = -(-W // Pw)
+    out = np.zeros((page.shape[0], W), dtype=np.int32)
+    for r in range(page.shape[0]):
+        h = np.flatnonzero(has[r])
+        if h.size == 0:
+            continue
+        P, m = page[r, h].max(), page[r, h].min()
+        if not (0 <= P < n_pages and m >= P - 1):
+            continue  # outside the output, or a gap of 2: empty
+        f0 = P * Pw
+        nf = min(2 * Pw if m == P else Pw, W - f0)
+        frame = np.full(nf, -1, dtype=np.int32)
+        for q in h:  # a row one page below P gives its upper half
+            frame &= band[r, q, np.arange(nf) + (Pw if page[r, q] < P else 0)]
+        off = (np.arange(W) - f0).astype(np.uint32)
+        inside = off < nf
+        out[r, inside] = frame[off[inside]]
+    return torch.from_numpy(out)
+
+
 def _adversarial(W: int, Pw: int, Q1: int, seed: int):
     """Pages one, two and more apart, zero bands at differing pages (an
     empty intersection keeps a page that later positions meet), all-miss
-    reads, single contributions and bands on the last, partial page."""
+    reads, single contributions and bands on the last, partial page. Then,
+    with dense bands: pages {P - 1, P} with the P - 1 rows first and last,
+    a gap of 2 only at the last contributing position, one contribution at
+    page 0 and one at the last page, and rows 88-91 and 92-95 each at one
+    page (the test's clamped indices join them there)."""
     rng = np.random.default_rng(seed)
     n_pages = -(-W // Pw)
-    B = 64
+    B = 96
     base = rng.integers(0, n_pages, size=(B, 1))
     page = np.clip(base + rng.integers(-3, 4, size=(B, Q1)), 0, n_pages - 1).astype(np.int32)
     band = rng.integers(-(1 << 31), 1 << 31, size=(B, Q1, 2 * Pw), dtype=np.int64).astype(np.int32)
@@ -274,28 +323,64 @@ def _adversarial(W: int, Pw: int, Q1: int, seed: int):
     page[16:24, ::2] = 0
     page[16:24, 1::2] = 2  # two apart: empty
     band[24:32, 0] = 0  # an early empty band at a low page
+    # dense bands (15/16 of the bits set), so that the edges' ANDs keep bits
+    band[32:] = np.bitwise_or.reduce(
+        rng.integers(-(1 << 31), 1 << 31, size=(4, B - 32, Q1, 2 * Pw), dtype=np.int64), axis=0)
+    has[32:72] = True
+    top = rng.integers(1, n_pages, size=(16, 1))
+    low = np.arange(Q1) < max(Q1 // 2, 1)
+    page[32:48] = top - np.where(np.arange(16)[:, None] < 8, low, low[::-1])  # P - 1 first, then last
+    page[48:56] = rng.integers(0, n_pages - 2, size=(8, 1))
+    page[48:56, -1] += 2  # a gap of 2 only at the last contributing position
+    page[56:72] = 0
+    has[56:72] = False
+    has[56:72, rng.integers(0, Q1, size=16)] = True  # one contribution ...
+    page[64:72] = n_pages - 1  # ... at page 0, then at the last page
+    page[88:92] = page[88, 0]
+    page[92:96] = page[92, 0]
     return page, band, has
 
 
+@pytest.mark.parametrize("model", [sequential_fold, two_pass], ids=["sequential_fold", "two_pass"])
 @pytest.mark.parametrize("W, Pw, Q1, seed", [(625, 32, 14, 1), (100, 16, 7, 2), (70, 8, 5, 3),
-                                            (75, 16, 40, 4), (77, 24, 9, 5)])
-def test_sequential_fold_matches_the_tree(W, Pw, Q1, seed):
-    """Any pairing order gives the same bits (kernels.py:329-333): the
-    kernel's sequential fold equals _band_tree + _expand_band."""
+                                            (75, 16, 40, 4), (77, 24, 9, 5), (625, 32, 1, 6),
+                                            (625, 32, 40, 7), (625, 24, 16, 8)])
+def test_sequential_fold_matches_the_tree(model, W, Pw, Q1, seed):
+    """Any pairing order gives the same bits (kernels.py:329-333): a
+    sequential fold, and the kernel's closed form from the highest and
+    lowest page, equal _band_tree + _expand_band. Through the table, some
+    positions of rows 88-95 contribute at indices -1 and n_rows + 7, which
+    the gather clamps to the first and last row."""
     page, band, has = _adversarial(W, Pw, Q1, seed)
+    table, idx = _as_table(page, band, seed)
+    # a first and a last row at the page of rows 88-91 and 92-95
+    ends = [torch.from_numpy(np.concatenate([page[r, :1], band[r, 0]]))[None] for r in (88, 92)]
+    table = torch.cat([ends[0], table, ends[1]])
+    idx += 1
+    n_rows = table.shape[0]
+    clamped = np.zeros(has.shape, dtype=bool)
+    clamped[88:96, 1::3] = True
+    rows = np.nonzero(clamped)[0]
+    idx[torch.from_numpy(clamped)] = torch.from_numpy(np.where(rows < 92, -1, n_rows + 7).astype(np.int32))
+    has[clamped] = True
+    gathered = table[idx.long().clamp(0, n_rows - 1)].numpy()
+    page, band = gathered[..., 0], gathered[..., 1:]
     pg, bd, hs = E._band_tree(jnp.asarray(page), jnp.asarray(band), jnp.asarray(has), Pw)
     want = np.asarray(E._expand_band(pg, bd, hs, W, Pw))
-    got = sequential_fold(torch.from_numpy(page), torch.from_numpy(band), torch.from_numpy(has), W, Pw)
+    got = model(torch.from_numpy(page), torch.from_numpy(band), torch.from_numpy(has), W, Pw)
     assert np.array_equal(got.numpy(), want)
-    table, idx = _as_table(page, band, seed)
-    assert np.array_equal(K.band_tree_expand(table, idx, torch.from_numpy(has), W, Pw).numpy(), want)
+    assert np.array_equal(K.band_tree_expand(*TT.relayout_gband(table), idx, torch.from_numpy(has), W).numpy(), want)
     assert want.any() and not want[:4].any()
+    if Q1 > 1:  # the edges keep bits: {P - 1, P} in both orders, and a clamped read
+        assert want[32:40].any() and want[40:48].any() and want[88:96].any()
+        assert not want[48:56].any()  # the late gap of 2 empties the read
+    assert want[56:64].any() and want[64:72].any()  # single contributions at page 0 and the last page
 
 
 def _bte_args():
     page, band, has = _band_case(100, 16, 7, B=5)
     table, idx = _as_table(page, band)
-    return [table, idx, torch.from_numpy(has), 100, 16]
+    return [*TT.relayout_gband(table), idx, torch.from_numpy(has), 100]
 
 
 def _replace(args, i, value):
@@ -307,15 +392,16 @@ def _replace(args, i, value):
 @pytest.mark.parametrize(
     "mutate, err",
     [
-        (lambda a: _replace(a, 4, 12), "multiple of 8"),
-        (lambda a: _replace(a, 3, 40), "3 \\* Pw <= W"),
-        (lambda a: _replace(a, 0, a[0][:, :-1].contiguous()), "gband_table must be"),
-        (lambda a: _replace(a, 0, a[0].to(torch.int64)), "gband_table must be"),
-        (lambda a: _replace(a, 1, a[1].to(torch.int64)), "idx_sel must be"),
-        (lambda a: _replace(a, 2, a[2].to(torch.uint8)), "has_sel must be"),
-        (lambda a: _replace(a, 1, torch.zeros((5, 14), dtype=torch.int32)[:, ::2]), "contiguous"),
+        (lambda a: _replace(a, 1, a[1][:, :24].contiguous()), "multiple of 8"),
+        (lambda a: _replace(a, 4, 40), "3 \\* Pw <= W"),
+        (lambda a: _replace(a, 1, a[1][:, :-1].contiguous()), "bands of 31 words"),
+        (lambda a: _replace(a, 1, a[1].to(torch.int64)), "gband_band must be"),
+        (lambda a: _replace(a, 0, a[0][:-1].contiguous()), "gband_page must be"),
+        (lambda a: _replace(a, 2, a[2].to(torch.int64)), "idx_sel must be"),
+        (lambda a: _replace(a, 3, a[3].to(torch.uint8)), "has_sel must be"),
+        (lambda a: _replace(a, 2, torch.zeros((5, 14), dtype=torch.int32)[:, ::2]), "contiguous"),
     ],
-    ids=["Pw", "W", "table-width", "table-dtype", "idx-dtype", "has-dtype", "strided"],
+    ids=["Pw", "W", "table-width", "table-dtype", "page-shape", "idx-dtype", "has-dtype", "strided"],
 )
 def test_band_tree_expand_rejects_bad_arguments(mutate, err):
     with pytest.raises(ValueError, match=err):

@@ -57,3 +57,49 @@ def test_captured_arguments_are_the_main_paths(bench, probe):
     streams = KB.mono_probe_bytes(hi.numel(), W, 0)
     rows = int(torch.unique(h1[valid]).numel())
     assert streams + rows * 8 * 4 + stash.numel() * 4 < n <= streams + rows * (8 * 4 + 4 * 8 * W) + stash.numel() * 4
+
+
+def test_band_spread_counts_reads_by_their_pages():
+    """Each read falls in one class by its contributing pages: none, one
+    page, two adjacent pages, a gap of 2 or more; indices clamp as the
+    gather clamps them."""
+    pages = torch.tensor([0, 1, 2, 3], dtype=torch.int32)
+    idx = torch.tensor([[0, 1, 9], [2, 2, 0], [1, 2, 0], [3, -5, 3], [3, 3, 3]], dtype=torch.int32)
+    has = torch.tensor([[False, False, False], [True, True, False], [True, True, False],
+                        [True, True, False], [True, False, True]])
+    sp = KB.band_spread(pages, idx, has)  # no row; page 2; pages 1-2; pages 3 and 0 (clamped); page 3
+    assert sp == pytest.approx({"no_row": 0.2, "one_page": 0.4, "adjacent": 0.2, "gap2": 0.2, "mean_rows": 1.6})
+
+
+@pytest.mark.parametrize("patch, marks", [(KB._ORDINARY_STORES, ("ordinary_store(", "__stcs(")),
+                                          (KB._SCALAR_ZEROS, ("store_outside_scalar(out_r", None)),
+                                          (KB._INTERLEAVED_TABLE, ("nt_band_tree_expand_table", None))])
+def test_band_variant_patches_apply_to_the_kernel_source(patch, marks):
+    """The experimental variants of band_variants find what they replace in
+    csrc/band_tree_expand.cu, and a source without it is refused."""
+    with open(f"{K.CSRC}/band_tree_expand.cu") as f:
+        src = f.read()
+    new, gone = marks
+    out = patch(src)
+    assert new not in src and new in out
+    assert gone is None or gone not in out
+    if patch is not KB._INTERLEAVED_TABLE:
+        with pytest.raises(AssertionError, match="is not in"):
+            patch("// an unrelated source\n")
+
+
+def test_band_args_read_both_table_layouts():
+    """kernel_bytes and the page spread take band_tree_expand's arguments as
+    this checkout passes them (the re-laid table) and as older checkouts do
+    (one [page | band] table), with the same bytes."""
+    rng = np.random.default_rng(3)
+    table = torch.from_numpy(rng.integers(0, 5, size=(40, 1 + 2 * 8)).astype(np.int32))
+    idx = torch.from_numpy(rng.integers(-2, 45, size=(6, 4)).astype(np.int32))
+    has = torch.from_numpy(rng.random((6, 4)) < 0.7)
+    split = (table[:, 0].contiguous(), table[:, 1:].contiguous(), idx, has, 30)
+    old = (table, idx, has, 30, 8)
+    assert KB.kernel_bytes("band_tree_expand", split) == KB.kernel_bytes("band_tree_expand", old)
+    rows = int(torch.unique(idx[has]).numel())
+    assert KB.kernel_bytes("band_tree_expand", split) == 6 * 4 * 5 + 4 * 6 * 30 + rows * 17 * 4
+    for a, b in zip(KB.band_args(split), KB.band_args(old)):
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
