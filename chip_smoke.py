@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (nimble_tpu_torch).
 
-Drives the port's three align paths — `align` on the default group probe
+Drives every align path of the port — `align` on the default group probe
 and on the mono probe (`--probe mono`, `num_mismatches` 1) against narrow
-libraries, and on the wide banded group path (gband) against the 20k-allele
-HLA/KIR library — on one CUDA card, after building and checking their
-kernels:
+libraries; on the wide banded group path (gband) against the 20k-allele
+HLA/KIR library; and on the other wide paths (monocls with class bands or
+class bits, groupcls, the wide two-choice probe) — on one CUDA card, after
+building and checking their kernels:
 
   1. device: card, power limit, torch/CUDA versions; the native host IO
      library (native/), built with the first compiler that can
@@ -21,7 +22,7 @@ kernels:
      addresses; codes outside 0-4 and lens below k included;
   4. the 18 align goldens of tests/goldens/, byte-identical on cuda (15 on
      the group path, 3 on the mono path);
-  5. the group path at real size: HLA-100 library, 2,097,152 single-end
+  5. the group path at real size: HLA-100 library, 1,048,576 single-end
      100 bp reads (nimble_tpu_torch/bench_data.py), then 262,144 10x-shaped
      pairs through fastq-to-bam -> align -> report;
   6. mono_probe kernel == its plain torch version on both outputs, exactly,
@@ -32,14 +33,14 @@ kernels:
      tables with random orientation flags (palindromes, S != 4); the
      engine build's slot-major re-lay of the large table timed (the
      pipeline's stage log);
-  7. the mono path at real size: the same 2,097,152 reads and 262,144 BAM
+  7. the mono path at real size: the same 1,048,576 reads and 262,144 BAM
      pairs under `--probe mono`, and 524,288 reads of the same generator
      against HLA-100 with `num_mismatches = 1`;
   8. the same 65,536 reads through `align --device cuda` and `--device cpu`
      give byte-identical TSVs, on the group probe and on `--probe mono`;
   9. the wide workload (bench_data.write_wide): the 20k-allele library of
      scripts/bigindex.py (20 families x 1,000 alleles x 3 kb, 25 SNPs each:
-     20,000 features, W = 625 words), its index (C++ builder), 1,048,576
+     20,000 features, W = 625 words), its index (C++ builder), 524,288
      single-end 100 bp reads and 262,144 pairs (two FASTQs, both mates from
      one fragment of one allele), 1% substitutions; the engine build timed
      by part (index load, gband host build + sidecar write, sidecar load,
@@ -56,7 +57,36 @@ kernels:
      page, out-of-range indices with and without a contribution);
  11. the gband path at real size: the single-end and paired runs;
  12. 16,384 of those reads through `align --device cuda` and `--device
-     cpu` give byte-identical TSVs on the gband path.
+     cpu` give byte-identical TSVs on the gband path;
+ 13. (A) monocls at W = 625: the 20k library off the group probe
+     (NIMBLE_TPU_NO_GROUP_PROBE=1 on the index phase 9 built, which the
+     reference also takes to monocls, rather than a second 20k index for
+     `--probe mono`); its classes fit the strict class bands, so the step
+     intersects them with band_tree_expand (checked against its plain
+     version at Q1 = P, timed), and the same chunk's step is timed again
+     over class_bits (the class-bits intersection at W = 625, its output
+     equal to the banded step's); the first 262,144 of its reads and 65,536
+     of its pairs, and 16,384 reads cuda against cpu;
+ 14. (B) groupcls at W = 157: the first 5 families of the wide generator
+     written allele-major (bench_data, `interleaved`: 5,000 alleles whose
+     classes are not contiguous, so robust banding fails), default probe,
+     262,144 reads, 65,536 pairs, 16,384 reads cuda against cpu;
+ 15. (C) monocls with class bands at W = 125: the first 4 families in
+     family order (no k-mer shared between families), `--probe mono`,
+     262,144 reads, 16,384 reads cuda against cpu; band_tree_expand == its
+     plain version at the class ids the step passes it (Q1 = P), timed;
+ 16. (E) monocls with class bits at W = 157: B's library under `--probe
+     mono`, 262,144 reads, 16,384 reads cuda against cpu;
+ 17. (D) the wide two-choice probe: B's library under `--probe mono` with
+     the placement cap (tables.MONO_MAX_BYTES, what NIMBLE_TPU_MONO_MAX_BYTES
+     sets at import) one byte under monocls's smallest table; 262,144
+     reads, 16,384 reads cuda against cpu.
+On 13-17 the engine `align` builds must take the named path (the run log's
+`engine` event), kmer_keys == its plain version at the arguments it passes
+for the first chunk of the reads, and that chunk's step is timed by stage
+(window, probe, intersection, combine + pack; kernel_bench.class_stages)
+with CUDA events. Depths cut to fit them: phases 5 and 7 from 2,097,152
+reads to 1,048,576, phase 9 from 1,048,576 reads to 524,288.
 
 Each kernel is timed at its main-path arguments, captured from the
 engine's align_batch on the first chunk of the workload's reads
@@ -69,8 +99,9 @@ the plain version's time, the bytes the call must move, its bound at
 
 Each main-path run zeroes the kernels' launch counts just before it and
 reads them just after; the run fails unless every kernel of its path ran.
-It prints its wall, and the index load and engine build inside it (the
-pipeline's stage log, NIMBLE_TPU_RUNLOG).
+It prints its wall, the engine's path, chunk and table bytes, and the index
+load and engine build inside it (the pipeline's stage log,
+NIMBLE_TPU_RUNLOG).
 
 Any failure raises (exit code != 0). The second-to-last line is a JSON
 record of the kernels; the last line is
@@ -87,7 +118,11 @@ import sys
 sys.modules["jax"] = None  # the port must never import jax: any attempt raises here
 sys.modules["nimble_tpu"] = None  # nor the JAX package
 
+import contextlib
+import gzip
+import itertools
 import json
+import math
 import os
 import re
 import shutil
@@ -95,6 +130,7 @@ import statistics
 import subprocess
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -110,18 +146,27 @@ FLAG_CASES = {
 SINGLE_END_CASES = {"strand_fiveprime"}
 
 READ_LEN = 100  # the bench reads' length (nimble_tpu_torch/bench_data.py)
-N_READS = 2_097_152
+N_READS = 1_048_576  # cut from 2,097,152 to make room for phases 13-17
 N_PAIRS = 262_144
 N_CMP_READS = 65_536
 N_NM1_READS = 524_288
 MONO = ["--probe", "mono"]
 
 # the 20k-allele HLA/KIR library's reads (bench_data.write_wide); cut from
-# the reference's 2M
-N_WIDE_READS = 1_048_576
+# the reference's 2M, then from 1,048,576 to make room for phases 13-17
+N_WIDE_READS = 524_288
 N_WIDE_PAIRS = 262_144
 N_WIDE_CMP = 16_384
 WIDE_KERNELS = ["kmer_keys", "band_tree_expand"]
+
+# the class-id wide paths (phases 13-17): single-end reads, pairs and the
+# reads through cuda and cpu of each
+N_CLS_READS = 262_144
+N_CLS_PAIRS = 65_536
+N_CLS_CMP = 16_384
+GCLS_FAMILIES = 5  # groupcls: 5,000 alleles written allele-major, W = 157
+BAND_FAMILIES = 4  # banded monocls: 4,000 alleles in family order, W = 125
+NO_GROUP = {"NIMBLE_TPU_NO_GROUP_PROBE": "1"}
 
 
 def say(phase: str, msg: str) -> None:
@@ -340,9 +385,10 @@ def phase_goldens(work: str):
         f"({len(cases) - len(MONO_GOLDENS)} group path, {len(MONO_GOLDENS)} mono path)")
 
 
-def drive(label: str, args, n: int, kernels, lo: float = 0.3):
+def drive(label: str, args, n: int, kernels, lo: float = 0.3, path: str = ""):
     """One main-path run: zero every kernel's launch count, run `align` on
-    cuda, read the counts. Fails unless each kernel of the path launched and
+    cuda, read the counts. Fails unless each kernel of the path launched,
+    the engine took `path` (when given; the run log's `engine` event) and
     the pass rate (TSV rows per read or pair) lies in (lo, 1]. Returns
     (wall s, rows, counts)."""
     from nimble_tpu_torch.align import kernels as K
@@ -363,6 +409,9 @@ def drive(label: str, args, n: int, kernels, lo: float = 0.3):
         stages = [json.loads(ln) for ln in f if ln.strip()]
     setup = {e["stage"]: e["wall_s"] for e in stages if e["event"] == "stage_end"}
     t_setup = setup.get("index_build", 0.0) + setup.get("engine_build", 0.0)
+    engine = [e for e in stages if e["event"] == "engine"][-1]
+    if path and engine["path"] != path:
+        raise AssertionError(f"{label}: the engine took the {engine['path']} path, not {path}")
     counts = {name: w.launches for name, w in wrappers.items()}
     for name in kernels:
         if counts[name] <= 0:
@@ -371,11 +420,13 @@ def drive(label: str, args, n: int, kernels, lo: float = 0.3):
     if not lo < rows / n <= 1.0:
         raise AssertionError(f"{label}: pass rate {rows / n:.4f} outside ({lo}, 1]")
     relay = "".join(f", of it the {what} re-lay {setup[stage]:.4f}" for stage, what in
-                    (("mono_relayout", "mono table's"), ("gband_relayout", "band table's")) if stage in setup)
+                    (("mono_relayout", "mono table's"), ("gband_relayout", "band table's"),
+                     ("class_relayout", "class bands'")) if stage in setup)
     say("main", f"{label}: {n} in {wall:.2f} s wall, {n / wall:,.0f}/s, pass rate {rows / n:.4f}, "
-        f"launches {counts}; set-up {t_setup:.2f} s (index load {setup.get('index_build', 0.0):.2f}, "
-        f"engine build {setup.get('engine_build', 0.0):.2f}{relay}), after it "
-        f"{n / max(wall - t_setup, 1e-9):,.0f}/s")
+        f"launches {counts}; path {engine['path']}, chunk {engine['chunk_size']}, tables "
+        f"{engine['table_bytes'] / 1e9:.3f} GB; set-up {t_setup:.2f} s (index load "
+        f"{setup.get('index_build', 0.0):.2f}, engine build {setup.get('engine_build', 0.0):.2f}{relay}), "
+        f"after it {n / max(wall - t_setup, 1e-9):,.0f}/s")
     return wall, rows, counts
 
 
@@ -669,37 +720,21 @@ def phase_mono_main(work: str, lib: str, fq: str, bam: str, nm1_lib: str, nm1_fq
 def phase_cuda_vs_cpu(work: str):
     from nimble_tpu_torch import bench_data
 
-    d = os.path.join(work, "cmp")
-    lib, fq = bench_data.write_single(d, N_CMP_READS)
+    lib, fq = bench_data.write_single(os.path.join(work, "cmp"), N_CMP_READS)
     for probe, flags in (("group", []), ("mono", MONO)):
-        outs = {}
-        for dev in ("cuda", "cpu"):
-            outs[dev] = os.path.join(d, f"out_{probe}_{dev}.tsv")
-            t0 = time.perf_counter()
-            cli(["align", "--reference", lib, "--output", outs[dev], "--input", fq, *flags, "--device", dev])
-            say("cmp", f"align --probe {probe} --device {dev}: {time.perf_counter() - t0:.2f} s")
-        with open(outs["cuda"], "rb") as a, open(outs["cpu"], "rb") as b:
-            if a.read() != b.read():
-                raise AssertionError(f"align --probe {probe}: --device cuda and --device cpu TSVs differ")
-        say("cmp", f"{N_CMP_READS} reads, --probe {probe}: cuda and cpu TSVs byte-identical "
-            f"({tsv_rows(outs['cuda'])} rows)")
+        compare_devices(f"HLA-100, --probe {probe}", lib, fq, flags, N_CMP_READS)
 
 
 def phase_wide_data(work: str):
     """The gband path's workload (bench_data.write_wide): the 20k-allele
     library and its index; gz FASTQs of N_WIDE_READS single-end reads, of
     their first N_WIDE_CMP, and of N_WIDE_PAIRS pairs."""
-    import gzip
-    import itertools
-
     from nimble_tpu_torch import bench_data
 
     d = os.path.join(work, "wide")
     t0 = time.perf_counter()
     lib, fq, r1, r2 = bench_data.write_wide(d, N_WIDE_READS, N_WIDE_PAIRS)
-    cmp_fq = os.path.join(d, f"reads20k_{N_WIDE_CMP}.fastq.gz")
-    with gzip.open(fq, "rb") as f, gzip.open(cmp_fq, "wb", compresslevel=1) as g:
-        g.write(b"".join(itertools.islice(f, 4 * N_WIDE_CMP)))
+    cmp_fq = gz_head(fq, os.path.join(d, f"reads20k_{N_WIDE_CMP}.fastq.gz"), N_WIDE_CMP)
     n_al = bench_data.WIDE_FAMILIES * bench_data.WIDE_ALLELES
     say("data", f"generated the 20k-allele library ({n_al} alleles x {bench_data.WIDE_LEN} bp), "
         f"{N_WIDE_READS} reads and {N_WIDE_PAIRS} pairs in {time.perf_counter() - t0:.1f} s")
@@ -917,17 +952,218 @@ def phase_wide_main(work: str, lib: str, fq: str, r1: str, r2: str):
     return {k: sum(r[2][k] for r in runs) for k in WIDE_KERNELS}
 
 
-def phase_wide_cmp(work: str, lib: str, cmp_fq: str):
+def compare_devices(label: str, lib: str, fq: str, flags=(), n: int = N_WIDE_CMP):
+    """The same reads through `align --device cuda` and `--device cpu`:
+    the TSVs must be byte-identical."""
     outs = {}
     for dev in ("cuda", "cpu"):
-        outs[dev] = os.path.join(work, "wide", f"out_cmp_{dev}.tsv")
+        outs[dev] = f"{os.path.splitext(lib)[0]}.cmp_{re.sub(r'[^A-Za-z0-9]+', '_', label)}_{dev}.tsv"
         t0 = time.perf_counter()
-        cli(["align", "--reference", lib, "--output", outs[dev], "--input", cmp_fq, "--device", dev])
-        say("cmp", f"align (20k library, gband) --device {dev}: {time.perf_counter() - t0:.2f} s")
+        cli(["align", "--reference", lib, "--output", outs[dev], "--input", fq, *flags, "--device", dev])
+        say("cmp", f"align ({label}) --device {dev}: {time.perf_counter() - t0:.2f} s")
     with open(outs["cuda"], "rb") as a, open(outs["cpu"], "rb") as b:
         if a.read() != b.read():
-            raise AssertionError("align on the 20k library: --device cuda and --device cpu TSVs differ")
-    say("cmp", f"{N_WIDE_CMP} reads, 20k library: cuda and cpu TSVs byte-identical ({tsv_rows(outs['cuda'])} rows)")
+            raise AssertionError(f"align ({label}): --device cuda and --device cpu TSVs differ")
+    say("cmp", f"{n} reads, {label}: cuda and cpu TSVs byte-identical ({tsv_rows(outs['cuda'])} rows)")
+
+
+def gz_head(src: str, dst: str, n: int) -> str:
+    """The first n records of a gz FASTQ, written to dst."""
+    with gzip.open(src, "rb") as f, gzip.open(dst, "wb", compresslevel=1) as g:
+        g.write(b"".join(itertools.islice(f, 4 * n)))
+    return dst
+
+
+@contextlib.contextmanager
+def environ(values):
+    """os.environ with `values` set, restored after."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_cls_data(work: str, tag: str, families: int, interleaved: bool, n_pairs: int, flags=()):
+    """A cut of the wide generator's library (`families` families, family
+    order or allele-major), N_CLS_READS single-end reads, n_pairs pairs and
+    the first N_CLS_CMP reads; its index (`index` with `flags`)."""
+    from nimble_tpu_torch import bench_data
+
+    d = os.path.join(work, tag)
+    t0 = time.perf_counter()
+    lib, fq, r1, r2 = bench_data.write_wide(d, N_CLS_READS, n_pairs, families=families, interleaved=interleaved)
+    cmp_fq = gz_head(fq, os.path.join(d, f"cmp_{N_CLS_CMP}.fastq.gz"), N_CLS_CMP)
+    say("data", f"generated {os.path.basename(lib)} ({families * bench_data.WIDE_ALLELES} alleles"
+        f"{', allele-major' if interleaved else ''}), {N_CLS_READS} reads and {n_pairs} pairs in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cli(["index", "--reference", lib, *flags])
+    say("data", f"{os.path.basename(lib)} index{''.join(' ' + f for f in flags)} built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return lib, fq, (r1, r2), cmp_fq
+
+
+def phase_cls_engine(tag: str, lib: str, fq: str, path: str, group_g=None, bits_too: bool = False):
+    """The engine that `align` builds for `lib` and 100 bp single-end reads,
+    which must take `path`: its tables; the kmer_keys kernel (and, on the
+    class bands, band_tree_expand at Q1 = P) against its plain version on
+    the arguments the engine passes it for the first chunk of fq's reads;
+    that chunk's step timed by stage (kernel_bench.class_stages), and with
+    `bits_too` on the class bands, timed again over class_bits instead
+    (its output must equal the banded step's). Returns
+    (kmer_keys max |diff|, band_tree_expand (max |diff|, ms, plain ms,
+    bound ms) or None)."""
+    from nimble_tpu_torch import kernel_bench as KB
+    from nimble_tpu_torch.align import kernels as K
+    from nimble_tpu_torch.align import tables as TT
+
+    t0 = time.perf_counter()
+    r, eng = KB.engine(lib, group_g)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    if eng.path != path:
+        raise AssertionError(f"{tag}: the engine took the {eng.path} path, not {path} ({sorted(eng.tables)})")
+    W = TT.table_words(eng.tables)
+    banded = "class_band" in eng.tables
+    if ("class_bits" in eng.tables) == banded:
+        raise AssertionError(f"{tag}: the engine ships {sorted(eng.tables)}")
+    sizes = ", ".join(f"{k} {tuple(v.shape)}" for k, v in eng.tables.items()
+                      if isinstance(v, torch.Tensor) and v.numel() > 4096)
+    say(tag, f"engine: path {eng.path}, W={W}, g={eng.params.group_g}, chunk {eng.chunk_size}, tables "
+        f"{eng.table_bytes / 1e9:.3f} GB on the card ({sizes}); index load + table build + copy {t_build:.2f} s")
+    if banded:
+        Pw, _ = TT.build_class_bands(r.index)
+        first, last = TT._class_spans(r.index.class_bits.view(np.int32), W)
+        say(tag, f"strict class bands hold: the widest class spans {int((last - first + 1).max())} of {W} words, "
+            f"so Pw = {Pw} and 3 Pw <= W")
+    if path == "groupcls":
+        cb = r.index.class_bits.view(np.int32)
+        first, last = TT._class_spans(cb, W)
+        span = last - first + 1
+        robust = TT.build_class_bands_robust(r.index)
+        say(tag, f"robust banding {'infeasible' if robust is None else 'feasible'}: {int((span > W // 2).sum())} of "
+            f"{cb.shape[0]} classes span more than half of the {W} words (99.99th percentile span "
+            f"{np.percentile(span, 99.99):.0f}); {r.index.pair_hi.shape[0]} group entries")
+    codes, lens = KB.fastq_head(fq, eng.chunk_size, eng.max_len)
+    kargs = KB.captured(eng, codes, lens, "kmer_keys")
+    err = check_kmer(f"{tag} (the first chunk)", *kargs)
+    say(tag, f"kmer_keys B={kargs[0].shape[0]} L={kargs[0].shape[1]} k={kargs[2]} n_buckets={kargs[3]} (the "
+        "engine's first chunk): all 7 planes equal the plain version")
+    band = None
+    if banded:
+        bargs = KB.captured(eng, codes, lens, "band_tree_expand")
+        b_err, _ = check_band(f"{tag} (class ids of the first chunk, Q1 = P)", *bargs)
+        sp = KB.band_spread(*KB.band_args(bargs)[:3])
+        ms = KB.device_ms(lambda: K.band_tree_expand(*bargs))
+        plain = cuda_ms(lambda: K.band_tree_expand_reference(*bargs))
+        n_bytes = KB.kernel_bytes("band_tree_expand", bargs)
+        bound = KB.bound_ms(n_bytes)
+        say(tag, f"band_tree_expand B={bargs[2].shape[0]} Q1={bargs[2].shape[1]} W={W} "
+            f"Pw={bargs[1].shape[1] // 2}: kernel {ms:.4f} ms on the card (CUDA graph, median of 25), "
+            f"{n_bytes / 1e6:.1f} MB, bound {bound:.4f} ms, share {bound / ms:.3f}; plain {plain:.4f} ms; "
+            f"reads: no row {sp['no_row']:.4f}, one page {sp['one_page']:.4f}, two adjacent pages "
+            f"{sp['adjacent']:.4f}, a gap of 2 or more {sp['gap2']:.4f}; {sp['mean_rows']:.2f} positions a read")
+        band = (b_err, ms, plain, bound)
+    dev = torch.device("cuda")
+    c, ln = torch.from_numpy(codes).to(dev), torch.from_numpy(lens).to(dev)
+    print_stages(tag, "one step by stage", KB.stage_ms(KB.class_stages(eng, c, ln)), c.shape)
+    if banded and bits_too:
+        # the same step over class_bits, as on a library without the bands:
+        # the class-bits intersection at this W, on these reads' classes
+        unbanded = types.SimpleNamespace(params=eng.params, tables={
+            **{k: v for k, v in eng.tables.items() if k not in ("class_page", "class_band", "class_words")},
+            "class_bits": torch.from_numpy(r.index.class_bits.view(np.int32)).to(dev)})
+        outs = []
+        for e in (eng, unbanded):
+            x = None
+            for _, fn in KB.class_stages(e, c, ln):
+                x = fn(x)
+            outs.append(x)
+        if not torch.equal(*outs):
+            raise AssertionError(f"{tag}: the step over class_bits differs from the step over the class bands")
+        print_stages(tag, "the same step over class_bits (intersect_class_bits at this W; output equal to the "
+                     "banded step's)", KB.stage_ms(KB.class_stages(unbanded, c, ln)), c.shape)
+        del unbanded, outs
+    del eng, r
+    torch.cuda.empty_cache()
+    return err, band
+
+
+def print_stages(tag: str, what: str, st: dict, shape) -> None:
+    total = sum(v for k, v in st.items() if k != "step")
+    say(tag, f"{what}, B={shape[0]} L={shape[1]} (CUDA events, the card idle before each stage, median of 5): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in st.items())
+        + f"; the intersection is {st['intersection'] / total:.3f} of the stages' sum")
+
+
+def phase_cls(work: str, tag: str, lib: str, fq: str, cmp_fq: str, path: str, flags=(), pairs=None,
+              group_g=None, bits_too: bool = False):
+    """A class-id wide path: phase_cls_engine, then N_CLS_READS single-end
+    reads (and N_CLS_PAIRS pairs) through `align` on cuda, then N_CLS_CMP
+    reads on cuda and cpu. Returns (kmer_keys max |diff|, band_tree_expand
+    result or None, summed launch counts)."""
+    cores = str(os.cpu_count() or 1)
+    kernels = ["kmer_keys", "band_tree_expand"] if path.endswith("(class bands)") else ["kmer_keys"]
+    err, band = phase_cls_engine(tag, lib, fq, path, group_g, bits_too)
+    base = os.path.splitext(lib)[0]
+    runs = [drive(f"{tag} single-end reads", ["--reference", lib, "--output", f"{base}.se.tsv", "--input", fq,
+                                              "-c", cores, *flags], N_CLS_READS, kernels, lo=0.05, path=path)]
+    if pairs:
+        runs.append(drive(f"{tag} pairs (two FASTQs)", ["--reference", lib, "--output", f"{base}.pe.tsv",
+                                                         "--input", *pairs, "-c", cores, *flags],
+                          N_CLS_PAIRS, kernels, lo=0.05, path=path))
+    compare_devices(tag, lib, cmp_fq, flags, N_CLS_CMP)
+    return err, band, {k: sum(r[2][k] for r in runs) for k in runs[0][2]}
+
+
+def phase_cls_paths(work: str, wlib: str, wfq: str, wr1: str, wr2: str, wcmp: str):
+    """Phases 13-17: the 20k library off the group probe (monocls with
+    class bands, W = 625, and its step over class_bits), the allele-major
+    library (groupcls), a family-order library under --probe mono (monocls,
+    class bands), the allele-major one under --probe mono (monocls, class
+    bits), then with the placement cap below its monocls table (the wide
+    two-choice probe). Returns (kmer_keys max |diff|, band_tree_expand
+    (max |diff|, ms, plain ms, bound ms) on each class-band path, summed
+    launch counts)."""
+    from nimble_tpu_torch.align import tables as TT
+    from nimble_tpu_torch.align.pipeline import make_runner
+
+    d = os.path.join(work, "wide")
+    fq = gz_head(wfq, os.path.join(d, f"reads20k_{N_CLS_READS}.fastq.gz"), N_CLS_READS)
+    pairs = [gz_head(src, os.path.join(d, f"pairs20k_r{i}_{N_CLS_PAIRS}.fastq.gz"), N_CLS_PAIRS)
+             for i, src in ((1, wr1), (2, wr2))]
+    results = []
+    with environ(NO_GROUP):  # the 20k index as phase 9 built it, off the group probe
+        results.append(phase_cls(work, "A", wlib, fq, wcmp, "monocls (class bands)", pairs=pairs, bits_too=True))
+    blib, bfq, bpairs, bcmp = phase_cls_data(work, "gcls", GCLS_FAMILIES, True, N_CLS_PAIRS)
+    results.append(phase_cls(work, "B", blib, bfq, bcmp, "groupcls", pairs=bpairs))
+    clib, cfq, _, ccmp = phase_cls_data(work, "band", BAND_FAMILIES, False, 0, MONO)
+    results.append(phase_cls(work, "C", clib, cfq, ccmp, "monocls (class bands)", MONO, group_g=0))
+    t0 = time.perf_counter()
+    cli(["index", "--reference", blib, *MONO])
+    say("data", f"{os.path.basename(blib)} index --probe mono built in {time.perf_counter() - t0:.2f} s")
+    results.append(phase_cls(work, "E", blib, bfq, bcmp, "monocls", MONO, group_g=0))
+    index = make_runner(blib, os.devnull, group_g=0).index
+    n_keys = int(((index.table_vsame >= 0) | (index.table_vdiff >= 0)).sum()
+                 + ((index.stash_vsame >= 0) | (index.stash_vdiff >= 0)).sum())
+    # monocls's smallest candidate table, less one byte: no placement fits
+    cap = (1 << (math.ceil(math.log2(n_keys)) + 1)) * TT.MONO_SLOTS * 4 * 4 - 1
+    say("data", f"{os.path.basename(blib)}: {n_keys} keys, the placement cap set to {cap} B "
+        "(NIMBLE_TPU_MONO_MAX_BYTES, as read at import)")
+    default_cap = TT.MONO_MAX_BYTES
+    TT.MONO_MAX_BYTES = cap
+    try:
+        results.append(phase_cls(work, "D", blib, bfq, bcmp, "two-choice", MONO, group_g=0))
+    finally:
+        TT.MONO_MAX_BYTES = default_cap
+    counts = {k: sum(r[2][k] for r in results) for k in results[0][2]}
+    return max(r[0] for r in results), [r[1] for r in results if r[1] is not None], counts
 
 
 def main() -> int:
@@ -955,17 +1191,21 @@ def main() -> int:
         wlib, wfq, wcmp, wr1, wr2 = phase_wide_data(work)
         bt_err, bt_ms, bt_plain, bt_bound = phase_wide_kernel(wlib, wfq)
         wide_counts = phase_wide_main(work, wlib, wfq, wr1, wr2)
-        phase_wide_cmp(work, wlib, wcmp)
+        compare_devices("20k library, gband", wlib, wcmp)
+        cls_err, cls_bands, cls_counts = phase_cls_paths(work, wlib, wfq, wr1, wr2, wcmp)
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     # no single PyTorch call computes any of these functions: library_ms null
+    # times and bounds at each kernel's main path; launches summed over
+    # every path's runs, errors over every check
+    runs = (group_counts, mono_counts, wide_counts, cls_counts)
     kernels = [
-        ("kmer_keys", "nimble_tpu/align/kernels.py:157",
-         group_counts["kmer_keys"] + mono_counts["kmer_keys"] + wide_counts["kmer_keys"],
-         kk_err, kk_ms, kk_plain, kk_bound),
+        ("kmer_keys", "nimble_tpu/align/kernels.py:157", sum(c["kmer_keys"] for c in runs),
+         max(kk_err, cls_err), kk_ms, kk_plain, kk_bound),
         ("mono_probe", "nimble_tpu/align/kernels.py:273", mono_counts["mono_probe"],
          mp_err, mp_ms, mp_plain, mp_bound),
-        ("band_tree_expand", "nimble_tpu/align/kernels.py:394", wide_counts["band_tree_expand"],
-         bt_err, bt_ms, bt_plain, bt_bound),
+        ("band_tree_expand", "nimble_tpu/align/kernels.py:394",
+         wide_counts["band_tree_expand"] + cls_counts["band_tree_expand"],
+         max(bt_err, *(b[0] for b in cls_bands)), bt_ms, bt_plain, bt_bound),
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"nimble_tpu_torch/csrc/{name}.cu", "replaces": replaces,

@@ -64,9 +64,9 @@ def main(argv=None) -> int:
              "transient budget; see align.engine.auto_chunk_size).",
     )
     align_parser.add_argument("--resume", action="store_true", default=False,
-                              help="Not ported (ROADMAP Queue 1 item 13).")
+                              help="Not ported (ROADMAP Queue 1 item 4).")
     align_parser.add_argument("--mesh", type=str, default="",
-                              help="Not ported (ROADMAP Queue 1 item 13).")
+                              help="Not ported (ROADMAP Queue 1 item 8).")
     align_parser.add_argument(
         "--probe", type=str, default="group", choices=("group", "mono"),
         help="k-mer probe path: 'group' (default) probes one (k+g-1)-mer per "
@@ -85,9 +85,9 @@ def main(argv=None) -> int:
     report_parser.add_argument("-t", "--threshold", type=float, default=0.05)
     report_parser.add_argument("--disable_thresholding", action="store_true", default=False)
     report_parser.add_argument("--device", action="store_true", default=False,
-                               help="Not ported (ROADMAP Queue 1 item 12).")
+                               help="Not ported (ROADMAP Queue 1 item 7).")
     report_parser.add_argument("--distributed", type=int, default=0, metavar="N",
-                               help="Not ported (ROADMAP Queue 1 items 12-13).")
+                               help="Not ported (ROADMAP Queue 1 items 7-8).")
     report_parser.add_argument(
         "--stream", action="store_true", default=None,
         help="Run the exact host pipeline via bounded spill buckets "
@@ -117,7 +117,7 @@ def main(argv=None) -> int:
     index_parser.add_argument("--kmer-length", type=int, default=None)
     index_parser.add_argument("--probe", type=str, default="group", choices=("group", "mono"))
     index_parser.add_argument("--warm", type=int, default=0, metavar="READ_LEN", nargs="?", const=100,
-                              help="Not ported (ROADMAP Queue 1 item 14).")
+                              help="Not ported (ROADMAP Queue 1 item 5).")
     index_parser.add_argument("--paired", action="store_true", default=False)
     index_parser.add_argument("--chunk-size", type=int, default=0)
     index_parser.add_argument("--strand_filter", type=str, default="unstranded")
@@ -156,9 +156,9 @@ def main(argv=None) -> int:
         )
     if args.subcommand == "report":
         if args.distributed > 0:
-            return _unported("report --distributed is ROADMAP Queue 1 items 12-13")
+            return _unported("report --distributed is ROADMAP Queue 1 items 7-8")
         if args.device:
-            return _unported("report --device is ROADMAP Queue 1 item 12")
+            return _unported("report --device is ROADMAP Queue 1 item 7")
         from nimble_tpu_torch.report.tsv import report
 
         summarize_columns_list = args.summarize.split(",") if args.summarize else None
@@ -191,7 +191,7 @@ def main(argv=None) -> int:
         return 0
     if args.subcommand == "index":
         if args.warm:
-            return _unported("index --warm is ROADMAP Queue 1 item 14")
+            return _unported("index --warm is ROADMAP Queue 1 item 5")
         from nimble_tpu_torch.config import load_library
         from nimble_tpu_torch.index.builder import build_index, index_cache_key, index_cache_path
 

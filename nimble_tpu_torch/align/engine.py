@@ -1,6 +1,6 @@
 """The align steps and their engine, in torch.
 
-Ports these paths of nimble_tpu/align/engine.py:
+Ports every path of nimble_tpu/align/engine.py:_score_mate:
   * group (`_score_mate_group`, W <= 8): per mate, the window stage at
     k+g-1 (`kernels.kmer_keys`), one group-table row gather per probe
     position (`group_probe`), window masks and coverage scores for both
@@ -10,18 +10,28 @@ Ports these paths of nimble_tpu/align/engine.py:
     masks and scores, the orientation chosen from the masks alone, then the
     selected orientation's band rows gathered, ANDed and expanded to W words
     (`kernels.band_tree_expand`);
+  * groupcls (`_score_mate_classes`, W > 16 when gband cannot be built):
+    the same window stage and probe grid, the probe rows carrying the g
+    windows' class ids (`groupcls_probe`), masks and scores, the orientation
+    chosen from the scores, then the runs-compacted class-bits intersection
+    of the selected orientation's classes (`intersect_class_bits`);
   * mono (`_score_mate_mono`): the window stage at k, the stride slice, the
     fused mono-table probe (`kernels.mono_probe`), coverage and the same
     orientation select and AND;
   * two-choice inline (`_score_mate_inline`), the fallback when mono
     placement is infeasible: the window stage at k and `lookup_inline_bits`
     in plain torch (the reference has no kernel for it);
+  * monocls and the wide two-choice probe (`_score_mate_classes`, W > 16
+    without the group probe): the window stage at k, the stride slice, one
+    class-id probe per window (`lookup_monocls`, or `lookup_classes` when
+    monocls placement is infeasible), coverage, the orientation, then the
+    selected classes intersected over `class_bits` (`intersect_class_bits`)
+    or, where every class fits a 2-page band, over their band rows
+    (`intersect_class_bands`: `kernels.band_tree_expand`);
 then mate combination, score filters and the output wire: the full
 `pack_outputs` format, or on the gband path the reference's device emit cap
 with its idlist wire (`pack_outputs_idlist`) or band rows. Every function is
 held bit for bit against its reference counterpart (tests/test_torch_*.py).
-The reference's other wide paths (groupcls, monocls and the wide two-choice
-probe) raise NotImplementedError when the engine is built.
 
 Exactness rules that torch imposes (the reference computes in uint32 and
 int32 under XLA):
@@ -62,6 +72,7 @@ from nimble_tpu_torch.align.tables import (
     GROUP_MAX_WORDS,
     INLINE_BITS_MAX_WORDS,
     MONO_SLOTS,
+    build_class_bands,
     device_tables,
     table_words,
 )
@@ -98,13 +109,16 @@ class AlignParams:
         )
 
 
-# auto chunk sizing (engine.py:135-177, group and inline branches): budget
-# the dominant per-read intermediates against ~1 GB of device transients,
-# rounded to a power of two
+# auto chunk sizing (engine.py:135-204): budget the dominant per-read
+# intermediates against ~1 GB of device transients, rounded to a power of two
 AUTO_CHUNK_BUDGET = 1 << 30
 AUTO_CHUNK_MIN = 1 << 10
 AUTO_CHUNK_MAX = 1 << 17
 CPU_CHUNK_MAX = 1 << 13  # keeps host RAM sane when the device is the CPU
+
+# run-start classes gathered at a time by the wide class-bits intersection
+# (engine.py:127)
+RUN_BLOCK = 8
 
 # packed-output columns after the W bits words (engine.py:1146)
 PACKED_EXTRA = 3
@@ -115,29 +129,47 @@ def auto_chunk_size(index: KmerIndex, max_len: int, paired: bool,
                     device: torch.device, group_ok: bool = True,
                     band_words: int = 0) -> int:
     """Largest power-of-two chunk whose working set on the engine's path
-    (group when group_ok and the index has group entries at W <= 8; the
-    W <= 16 mono/inline path; gband at W > 16, whose 2 Pw-word bands are
-    `band_words`) fits AUTO_CHUNK_BUDGET; on the CPU at most CPU_CHUNK_MAX.
-    The reference sizes a library that only its robust banding takes by its
-    groupcls formula; the port sizes every gband engine by the bands it
-    runs."""
+    fits AUTO_CHUNK_BUDGET, by the reference's formulas (engine.py:156):
+    group when group_ok and the index has group entries at W <= 8; the
+    W <= 16 mono/inline path; at W > 16 with group_ok and group entries,
+    the banded group formula, else groupcls's; else monocls's (or the wide
+    two-choice's), with banded rows where the strict class bands exist. On
+    the CPU at most CPU_CHUNK_MAX. A gband engine passes its 2 Pw-word bands
+    as `band_words`: the reference sizes a library that only its robust
+    banding takes by its groupcls formula, the port every gband engine by
+    the bands it runs."""
     k = index.k
     L = max(max_len, k)
     P = L - k + 1
     W = index.bitset_words
     S = BUCKET_SLOTS
-    if group_ok and index.has_pairs and (W <= GROUP_MAX_WORDS or band_words):
+    if group_ok and index.has_pairs and W <= GROUP_MAX_WORDS:
         g = index.pair_g
         PP = max(L - (k + g - 1) + 1, 1)
         Q = (PP + g - 1) // g + 1
-        if W <= GROUP_MAX_WORDS:
-            per_read = Q * S * (2 + 2 * W + 1) + 4 * Q * W + 10 * PP + 6 * P
-        else:
+        per_read = Q * S * (2 + 2 * W + 1) + 4 * Q * W + 10 * PP + 6 * P
+    elif W <= INLINE_BITS_MAX_WORDS:
+        per_read = P * S * (2 + 2 * W) + 2 * P * W + 10 * P
+    elif group_ok and index.has_pairs:
+        g = index.pair_g
+        PP = max(L - (k + g - 1) + 1, 1)
+        Q = (PP + g - 1) // g + 1
+        if not band_words:
+            bands = build_class_bands(index)
+            band_words = 2 * bands[0] if bands is not None else 0
+        if band_words:
             # 20-word probe rows + one (1 + Wb)-word band row per position,
             # with the plain band tree's transients ~3x (engine.py:183-187)
             per_read = Q * (5 * MONO_SLOTS + 3 * (1 + band_words)) + 10 * PP
+        else:
+            # groupcls: probe rows S (2 + 2g + 1) per group position plus the
+            # runs intersection's (chunk, RUN_BLOCK, W) block
+            per_read = Q * MONO_SLOTS * (2 + 2 * g + 1) + 6 * Q * g + 10 * PP + RUN_BLOCK * W
     else:
-        per_read = P * S * (2 + 2 * W) + 2 * P * W + 10 * P
+        # monocls or the wide two-choice probe
+        bands = build_class_bands(index)
+        blk = RUN_BLOCK * ((1 + 4 * bands[0]) if bands is not None else W)
+        per_read = P * 4 * MONO_SLOTS + 12 * P + blk
     bytes_per_read = per_read * 4 * (2 if paired else 1)
     chunk = 1 << int(np.log2(max(AUTO_CHUNK_BUDGET // max(bytes_per_read, 1), 1)))
     if device.type == "cpu":
@@ -407,11 +439,8 @@ def coverage_score2(matched_f, matched_r, lens, k: int, L: int, stride: int = 1)
     return cov_f.sum(dim=1).to(torch.int32), cov_r.sum(dim=1).to(torch.int32)
 
 
-def and_reduce_bits(rows: torch.Tensor, matched: torch.Tensor) -> torch.Tensor:
-    """engine.py:and_reduce_bits — AND (B, P, W) bitset rows over matched
-    positions -> (B, W). Misses contribute all ones; reads with no matched
-    position end all-zero."""
-    rows = torch.where(matched[..., None], rows, torch.full((), -1, dtype=rows.dtype, device=rows.device))
+def _and_tree(rows: torch.Tensor) -> torch.Tensor:
+    """AND of (B, n, W) rows over axis 1 by a halving tree -> (B, W)."""
     n = rows.shape[1]
     while n > 1:
         half = n // 2
@@ -420,7 +449,14 @@ def and_reduce_bits(rows: torch.Tensor, matched: torch.Tensor) -> torch.Tensor:
             lower[:, 0] &= rows[:, -1]
         rows = lower
         n = half
-    acc = rows[:, 0]
+    return rows[:, 0]
+
+
+def and_reduce_bits(rows: torch.Tensor, matched: torch.Tensor) -> torch.Tensor:
+    """engine.py:and_reduce_bits — AND (B, P, W) bitset rows over matched
+    positions -> (B, W). Misses contribute all ones; reads with no matched
+    position end all-zero."""
+    acc = _and_tree(torch.where(matched[..., None], rows, torch.full((), -1, dtype=rows.dtype, device=rows.device)))
     return torch.where(matched.any(dim=1)[:, None], acc, torch.zeros_like(acc))
 
 
@@ -557,6 +593,45 @@ def _score_mate_groupband(codes, lens, tables, p: AlignParams):
     return bits, torch.where(use_fwd, score_f, score_r), score_f, score_r
 
 
+def groupcls_probe(hi_i, lo_i, h1, fwd_c, valid, tables, g: int):
+    """engine.py:groupcls_probe — ONE groupcls-table row gather per probe
+    position answers g windows' class ids in both orientations. Returns
+    (cls_f, cls_r, mask_f, mask_r): per-window class ids (B, Q g) int32, -1
+    a miss, column q g + i the window at probe position q + i in forward
+    coordinates for both orientations (the reverse orientation's g columns
+    reversed within each probe, `torch.flip` for the reference's [..., ::-1]),
+    and the g-bit presence masks (B, Q), as group_probe's."""
+    B, Q = hi_i.shape
+    bucket = tables["groupcls_bucket"]
+    S = bucket.shape[1] // (2 + 2 * g + 1)
+    dev = bucket.device
+    neg = torch.full((), -1, dtype=torch.int32, device=dev)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    row = bucket[h1.long()]  # (B, Q, S * entry)
+    # empty slots hold the impossible key hi = -1: no occupancy check needed
+    match = (row[..., 0:S] == hi_i[..., None]) & (row[..., S : 2 * S] == lo_i[..., None])
+    cols = row[..., 2 * S : 2 * S + 2 * g * S].reshape(B, Q, 2 * g, S)
+    # at most one slot matches (keys are unique): max-select it, a miss -1
+    vals = torch.where(match[:, :, None, :], cols, neg).amax(dim=3)  # (B, Q, 2g)
+    mword = torch.where(match, row[..., 2 * S + 2 * g * S :], zero).sum(dim=2).to(torch.int32)
+    for s in range(tables["groupcls_stash_hi"].shape[0]):
+        m = (tables["groupcls_stash_hi"][s] == hi_i) & (tables["groupcls_stash_lo"][s] == lo_i)
+        vals = torch.where(m[..., None], tables["groupcls_stash_cols"][s], vals)
+        mword = mword | torch.where(m, tables["groupcls_stash_mask"][s], zero)
+    fc = fwd_c[..., None]
+    vs_cols, vd_cols = vals[..., :g], vals[..., g:]
+    cls_f = torch.where(fc, vs_cols, vd_cols)
+    cls_r = torch.flip(torch.where(fc, vd_cols, vs_cols), dims=[2])
+    v = valid[..., None]
+    cls_f = torch.where(v, cls_f, neg).reshape(B, Q * g)
+    cls_r = torch.where(v, cls_r, neg).reshape(B, Q * g)
+    gmask = (1 << g) - 1
+    # `>>` is arithmetic on int32: the & gmask keeps only the g-bit field
+    mask_f = torch.where(fwd_c, mword, mword >> 8) & gmask
+    mask_r = torch.where(fwd_c, mword >> 24, mword >> 16) & gmask
+    return cls_f, cls_r, torch.where(valid, mask_f, zero), torch.where(valid, mask_r, zero)
+
+
 def lookup_inline_bits(hi_i, lo_i, h1, h2, fwd_c, palin, valid, tables, W: int):
     """engine.py:lookup_inline_bits from precomputed canonical keys and both
     bucket hashes: two-choice probe of the inline bucket (one row per hash
@@ -628,22 +703,190 @@ def _score_mate_inline(codes, lens, tables, p: AlignParams):
     return _score_bits(bits_f_w, bits_r_w, lens, codes.shape[1], p)
 
 
+def lookup_classes(hi_i, lo_i, h1, h2, fwd_c, palin, valid, tables):
+    """engine.py:lookup_classes from precomputed canonical keys and both
+    bucket hashes: the two-choice probe of the wide class-id bucket (one
+    row per hash candidate), then the index's STASH_SIZE stash rows.
+    Returns (cls_f, cls_r) (B, P) int32 class ids, -1 a miss: cls_f for
+    the read's forward strand, cls_r for its reverse complement, both in
+    forward coordinates."""
+    S = BUCKET_SLOTS
+    dev = hi_i.device
+    neg = torch.full((), -1, dtype=torch.int32, device=dev)
+    vs = torch.full(hi_i.shape, -1, dtype=torch.int32, device=dev)
+    vd = torch.full(hi_i.shape, -1, dtype=torch.int32, device=dev)
+    for h in (h1, h2):
+        row = tables["bucket"][h.long()]  # (B, P, 4S)
+        bk_vs, bk_vd = row[..., 2 * S : 3 * S], row[..., 3 * S : 4 * S]
+        match = ((row[..., 0:S] == hi_i[..., None]) & (row[..., S : 2 * S] == lo_i[..., None])
+                 & ((bk_vs >= 0) | (bk_vd >= 0)))
+        # at most one slot matches (keys are unique): max-select it
+        vs = torch.maximum(vs, torch.where(match, bk_vs, neg).amax(dim=-1))
+        vd = torch.maximum(vd, torch.where(match, bk_vd, neg).amax(dim=-1))
+    for s in range(STASH_SIZE):
+        svs, svd = tables["stash_vsame"][s], tables["stash_vdiff"][s]
+        m = (tables["stash_hi"][s] == hi_i) & (tables["stash_lo"][s] == lo_i) & ((svs >= 0) | (svd >= 0))
+        vs = torch.where(m, svs, vs)
+        vd = torch.where(m, svd, vd)
+    return _orient_classes(vs, vd, fwd_c, palin, valid)
+
+
+def _orient_classes(vs, vd, fwd_c, palin, valid):
+    """Canonical-key class ids (vs: the canonical code's, vd: its reverse
+    complement's) -> (cls_f, cls_r) of the read's two orientations, -1
+    where the window is invalid."""
+    neg = torch.full((), -1, dtype=torch.int32, device=vs.device)
+    cls_f = torch.where(fwd_c, vs, vd)
+    cls_r = torch.where(palin, vs, torch.where(fwd_c, vd, vs))
+    return torch.where(valid, cls_f, neg), torch.where(valid, cls_r, neg)
+
+
+def lookup_monocls(hi_i, lo_i, h1, fwd_c, palin, valid, tables):
+    """engine.py:lookup_monocls from precomputed canonical keys and the
+    monocls bucket hash: ONE row gather per window answers both
+    orientations' class ids, then the stash sweep. Returns (cls_f, cls_r)
+    (B, P) int32, -1 a miss."""
+    bucket = tables["mcls_bucket"]
+    S = bucket.shape[1] // 4
+    neg = torch.full((), -1, dtype=torch.int32, device=bucket.device)
+    row = bucket[h1.long()]  # (B, P, 4S)
+    # empty slots hold the impossible key hi = -1: no occupancy check needed
+    match = (row[..., 0:S] == hi_i[..., None]) & (row[..., S : 2 * S] == lo_i[..., None])
+    # at most one slot matches (keys are unique): max-select it, a miss -1
+    vs = torch.where(match, row[..., 2 * S : 3 * S], neg).amax(dim=-1)
+    vd = torch.where(match, row[..., 3 * S : 4 * S], neg).amax(dim=-1)
+    for s in range(tables["mcls_stash_hi"].shape[0]):
+        m = (tables["mcls_stash_hi"][s] == hi_i) & (tables["mcls_stash_lo"][s] == lo_i)
+        vs = torch.where(m, tables["mcls_stash_vs"][s], vs)
+        vd = torch.where(m, tables["mcls_stash_vd"][s], vd)
+    return _orient_classes(vs, vd, fwd_c, palin, valid)
+
+
+def intersect_class_bits(class_ids: torch.Tensor, matched: torch.Tensor,
+                         class_bits: torch.Tensor) -> torch.Tensor:
+    """engine.py:intersect_class_bits — the AND of the class bitsets of the
+    matched positions' classes -> (B, W) int32; misses contribute all ones,
+    reads with no matched position end all-zero.
+
+    W <= 32: one (B, P, W) gather and and_reduce_bits. W > 32: runs
+    compacted, as the reference: one row per run of equal consecutive class
+    ids (AND is idempotent), the runs' first classes gathered RUN_BLOCK at a
+    time. The reference's while_loop stops after ceil(max_runs / RUN_BLOCK)
+    blocks, a count read off the data; every block past it selects no class
+    and ANDs all-ones. So this loop runs the static ceil(P / RUN_BLOCK)
+    blocks and gives the same bits without reading max_runs back to the
+    host: the step never waits on the card. A run's class lands in slot
+    `rank` of a (B, P) table by one scatter (the reference's one-hot rank
+    compare, which selects the same class per slot)."""
+    B, P = class_ids.shape
+    dev = class_ids.device
+    if class_bits.shape[1] <= 32:
+        return and_reduce_bits(class_bits[class_ids.clamp(min=0).long()], matched)
+    neg = torch.full((), -1, dtype=torch.int32, device=dev)
+    cls = torch.where(matched, class_ids, neg)
+    prev = torch.cat([torch.full((B, 1), -2, dtype=torch.int32, device=dev), cls[:, :-1]], dim=1)
+    newrun = matched & (cls != prev)  # run starts (over-marking is harmless)
+    rank = torch.cumsum(newrun.to(torch.int32), dim=1, dtype=torch.int32) - 1
+    n_slots = -(-P // RUN_BLOCK) * RUN_BLOCK
+    # slot n_slots takes every position that starts no run; it is dropped
+    slots = torch.full((B, n_slots + 1), -1, dtype=torch.int32, device=dev)
+    slots.scatter_(1, torch.where(newrun, rank, n_slots).long(), cls)
+    acc = torch.full((B, class_bits.shape[1]), -1, dtype=torch.int32, device=dev)
+    for base in range(0, n_slots, RUN_BLOCK):
+        ids = slots[:, base : base + RUN_BLOCK]
+        rows = torch.where(ids[..., None] >= 0, class_bits[ids.clamp(min=0).long()], neg)
+        acc &= _and_tree(rows)
+    return torch.where(matched.any(dim=1)[:, None], acc, torch.zeros_like(acc))
+
+
+def intersect_class_bands(class_ids: torch.Tensor, matched: torch.Tensor, class_page: torch.Tensor,
+                          class_band: torch.Tensor, W: int) -> torch.Tensor:
+    """engine.py:intersect_class_bands — the AND of the matched positions'
+    banded class bitsets, expanded to (B, W) int32: one band_tree_expand
+    launch over all P positions (idx_sel = the class ids, has_sel =
+    matched). The reference folds one row per run, RUN_BLOCK runs at a time,
+    through the page-select tree; the band AND is the exact set
+    intersection and idempotent, so folding every matched position in any
+    order gives the same bits. `build_class_bands` makes Pw a multiple of 8
+    with 3 Pw <= W, as the kernel needs."""
+    return band_tree_expand(class_page, class_band, class_ids, matched, W)
+
+
+def class_keys(codes, lens, tables, p: AlignParams):
+    """The window stage of the class-id paths: on groupcls the (k+g-1)-mer
+    grid and tail (`_group_keys`, -> (jstar, planes)); on monocls the
+    k-mer planes hashed into its bucket, on the wide two-choice probe at the
+    index's n_buckets (h1 and h2), each after the stride slice."""
+    if p.group_g >= 2 and "groupcls_bucket" in tables:
+        return _group_keys(codes, lens, p.k + p.group_g - 1, p.group_g, tables["groupcls_bucket"].shape[0])
+    nb = tables["mcls_bucket"].shape[0] if "mcls_bucket" in tables else p.n_buckets
+    return _window_keys(codes, lens, nb, p)
+
+
+def class_probe(keys, lens, L: int, tables, p: AlignParams):
+    """The probe stage of the class-id paths, from class_keys' output:
+    per-window class ids of both orientations (`groupcls_probe`,
+    `lookup_monocls` or `lookup_classes`), their coverage scores, and the
+    orientation (the read's strand filter, else the higher score). Only
+    the selected orientation's classes go on to the intersection. Returns
+    (cls_sel, score, score_f, score_r)."""
+    if p.group_g >= 2 and "groupcls_bucket" in tables:
+        g = p.group_g
+        jstar, cat = keys
+        cls_f, cls_r, mask_f, mask_r = groupcls_probe(*cat, tables, g)
+        Q = cat[0].shape[1] - 1
+        P = L - p.k + 1
+        score_f, score_r = coverage_score2(group_win_matched(mask_f, Q, g, P, jstar),
+                                           group_win_matched(mask_r, Q, g, P, jstar), lens, p.k, L, 1)
+    else:
+        hi, lo, h1, h2, fc, pal, valid = keys
+        if "mcls_bucket" in tables:
+            cls_f, cls_r = lookup_monocls(hi, lo, h1, fc, pal, valid, tables)
+        else:
+            cls_f, cls_r = lookup_classes(hi, lo, h1, h2, fc, pal, valid, tables)
+        score_f, score_r = coverage_score2(cls_f >= 0, cls_r >= 0, lens, p.k, L, p.stride)
+    use_fwd = _use_fwd(score_f, score_r, p)
+    return torch.where(use_fwd[:, None], cls_f, cls_r), torch.where(use_fwd, score_f, score_r), score_f, score_r
+
+
+def intersect_classes(cls_sel, tables) -> torch.Tensor:
+    """The intersection stage of the class-id paths: the selected classes'
+    bitsets ANDed, over their band rows where the strict class bands were
+    shipped (`intersect_class_bands`), else over `class_bits`
+    (`intersect_class_bits`; always so on groupcls)."""
+    if "class_band" in tables:
+        return intersect_class_bands(cls_sel, cls_sel >= 0, tables["class_page"], tables["class_band"],
+                                     table_words(tables))
+    return intersect_class_bits(cls_sel, cls_sel >= 0, tables["class_bits"])
+
+
+def _score_mate_classes(codes, lens, tables, p: AlignParams):
+    """engine.py:_score_mate_groupcls, and _score_mate's wide class-id
+    branch (monocls or the two-choice probe): class_keys, class_probe,
+    intersect_classes. On groupcls the grid and tail columns feed the runs
+    intersection directly (a tail column repeating a grid window's class
+    is idempotent); the reads shorter than k+g-1 that it leaves unmapped
+    are the pipeline's to repair, as on the group path."""
+    cls_sel, *scores = class_probe(class_keys(codes, lens, tables, p), lens, codes.shape[1], tables, p)
+    return (intersect_classes(cls_sel, tables), *scores)
+
+
 def _score_mate(codes, lens, tables, p: AlignParams):
-    """engine.py:_score_mate's dispatch on the ported paths: group or gband
-    when the params carry g >= 2 and the tables that path's bucket, else
-    mono, else two-choice."""
+    """engine.py:_score_mate's dispatch: group, gband or groupcls when the
+    params carry g >= 2 and the tables that path's bucket; the class-id
+    step on monocls or the wide two-choice bucket; else mono, else the
+    two-choice inline bucket (W <= 16)."""
     if p.group_g >= 2 and "group_bucket" in tables:
         return _score_mate_group(codes, lens, tables, p)
     if p.group_g >= 2 and "gband_bucket" in tables:
         return _score_mate_groupband(codes, lens, tables, p)
+    if (p.group_g >= 2 and "groupcls_bucket" in tables) or "mcls_bucket" in tables or "stash_vsame" in tables:
+        return _score_mate_classes(codes, lens, tables, p)
     if "mono_bucket" in tables:
         return _score_mate_mono(codes, lens, tables, p)
-    if "bucket" in tables:
+    if "stash_vs_bits" in tables:
         return _score_mate_inline(codes, lens, tables, p)
-    raise NotImplementedError(
-        "only the group, gband, mono and two-choice paths are ported; the other "
-        "wide paths are ROADMAP Queue 1 item 10"
-    )
+    raise ValueError(f"tables of no align path for group_g = {p.group_g} (keys {sorted(tables)})")
 
 
 def align_step(tables, p: AlignParams, r1_codes, r1_lens, r2_codes=None, r2_lens=None):
@@ -714,14 +957,14 @@ def combine_mates(p: AlignParams, r1_lens, m1, r2_lens=None, m2=None):
 
 class AlignEngine:
     """Single-device alignment engine over fixed-shape chunks
-    (engine.py:2698): group, gband, mono or two-choice, chosen as the
-    reference chooses. The reference's other wide paths (groupcls, monocls
-    and the wide two-choice probe) raise NotImplementedError here, before
-    any read is aligned (ROADMAP Queue 1 item 10).
+    (engine.py:2698) on any path of the reference's (group, gband, groupcls,
+    mono, monocls or either two-choice probe), chosen as the reference
+    chooses it.
 
     The output wire (`wire`) is static per engine and tags every dispatched
-    chunk: "full" (`pack_outputs`, (B, W+3)) on the narrow paths and for
-    paired intersect_level = 1, whose union may span more than two pages;
+    chunk: "full" (`pack_outputs`, (B, W+3)) on every path but gband, and
+    on gband for paired intersect_level = 1, whose union may span more than
+    two pages;
     on the gband path "idlist" (`pack_outputs_idlist`) when the emit cap
     (`emit_cap_of`) is on, else "band" (band rows [page | 2 Pw band] in the
     full format's place)."""
@@ -749,8 +992,9 @@ class AlignEngine:
             raise ValueError(f"max_len {self.max_len} > {MAX_LEN_LIMIT} (packed uint16 scores)")
         # group probe (engine.py:2740-2747): one (k+g-1)-mer gather answers g
         # windows, when the index has group entries, W <= 8 (group) or
-        # W > 16 (gband), reads are probed at stride 1 and are at least
-        # k+g-1 long, and NIMBLE_TPU_NO_GROUP_PROBE is not 1; else mono
+        # W > 16 (gband or groupcls), reads are probed at stride 1 and are at
+        # least k+g-1 long, and NIMBLE_TPU_NO_GROUP_PROBE is not 1; else
+        # mono (monocls at W > 16)
         group_ok = (
             index.has_pairs
             and (W <= GROUP_MAX_WORDS or W > INLINE_BITS_MAX_WORDS)
@@ -762,7 +1006,7 @@ class AlignEngine:
             group_ok = group_ok and group_probe
         self.tables = device_tables(index, self.device, group_ok=group_ok)
         gband = "gband_bucket" in self.tables
-        if "group_bucket" in self.tables or gband:
+        if gband or "group_bucket" in self.tables or "groupcls_bucket" in self.tables:
             self.params = replace(self.params, group_g=index.pair_g)
         self.band_pw = int(self.tables["gband_band"].shape[1]) // 2 if gband else 0
 
@@ -788,6 +1032,23 @@ class AlignEngine:
                                2 * self.max_len <= 1023)
             else:
                 self.wire = "band"
+
+    # the key that only one path's tables carry -> the path's name
+    PATHS = (("group_bucket", "group"), ("gband_bucket", "gband"), ("groupcls_bucket", "groupcls"),
+             ("mono_bucket", "mono"), ("stash_vs_bits", "two-choice inline"), ("mcls_bucket", "monocls"),
+             ("stash_vsame", "two-choice"))
+
+    @property
+    def path(self) -> str:
+        """The path this engine's tables take, by the reference's name; a
+        class-id path intersecting class bands says so."""
+        name = next(n for k, n in self.PATHS if k in self.tables)
+        return name + " (class bands)" if "class_band" in self.tables else name
+
+    @property
+    def table_bytes(self) -> int:
+        """Bytes of the tables on the engine's device."""
+        return sum(t.numel() * t.element_size() for t in self.tables.values() if isinstance(t, torch.Tensor))
 
     def _pad(self, arr, n, fill):
         if arr.shape[0] == n:

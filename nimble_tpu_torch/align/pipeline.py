@@ -9,9 +9,9 @@ three emission routes (dense bits, gband band rows, idlist ids) are the
 reference's own, so the output is byte-identical.
 
 The port runs one process on one device. It refuses the reference's
-`--mesh`, `--resume` and multi-process worlds (ROADMAP Queue 1 item 13);
-several comma-separated libraries run as one engine each, as the reference
-does under NIMBLE_TPU_NO_STACK=1.
+`--mesh` and multi-process worlds (ROADMAP Queue 1 item 8) and `--resume`
+(item 4); several comma-separated libraries run as one engine each, as the
+reference does under NIMBLE_TPU_NO_STACK=1 (stacking is item 6).
 """
 from __future__ import annotations
 
@@ -530,7 +530,9 @@ def _make_batches(inputs: Sequence[str], is_bam: bool, batch_records: int,
 def _build_engines(runners: List[LibraryRunner], device: torch.device,
                    strand_filter: str, chunk_size: Optional[int], max_len: int,
                    paired: bool, chunk_cap: Optional[int], log) -> None:
-    """(Re)construct each library's engine at a given max read length."""
+    """(Re)construct each library's engine at a given max read length; the
+    run log's `engine` event says which path it took, its chunk size, its
+    table bytes and its wire."""
     with log.stage("engine_build", max_len=max_len):
         for r in runners:
             r.engine = AlignEngine(
@@ -541,18 +543,20 @@ def _build_engines(runners: List[LibraryRunner], device: torch.device,
                 paired=paired,
                 chunk_cap=chunk_cap,
             )
+            log.event("engine", path=r.engine.path, chunk_size=r.engine.chunk_size,
+                      table_bytes=r.engine.table_bytes, wire=r.engine.wire)
 
 
 def refuse_unported(mesh: str = "", resume: bool = False) -> None:
     """Raise NotImplementedError for `align` options the port has not taken
     over from the reference, naming the ROADMAP item that will."""
     if mesh:
-        raise NotImplementedError("--mesh: multi-GPU align is ROADMAP Queue 1 item 13")
+        raise NotImplementedError("--mesh: multi-GPU align is ROADMAP Queue 1 item 8")
     if resume:
-        raise NotImplementedError("--resume is not ported (ROADMAP Queue 1 item 13)")
+        raise NotImplementedError("--resume is not ported (ROADMAP Queue 1 item 4)")
     if os.environ.get("JAX_COORDINATOR_ADDRESS") or int(os.environ.get("NIMBLE_TPU_NUM_PROCS", "1") or 1) > 1:
         raise NotImplementedError(
-            "multi-process align worlds are ROADMAP Queue 1 item 13 "
+            "multi-process align worlds are ROADMAP Queue 1 item 8 "
             "(unset JAX_COORDINATOR_ADDRESS / NIMBLE_TPU_NUM_PROCS)")
 
 

@@ -1,18 +1,30 @@
 """Device tables of the align paths: nimble_tpu/align/engine.py:
-_device_tables for W <= 16 and its gband branch for W > 16, as a dict of
-int32 tensors.
+_device_tables, every branch, as a dict of int32 tensors.
 
 The builders below are numpy copies of engine.py's `_single_hash_placement`,
 `_group_entry_payload`, `_build_group_tables`, `_build_mono_tables`, the
-two-choice inline bucket of `_device_tables`, `_build_class_bands(_robust)`,
-`_np_band_combine` and `_build_groupband_tables`, with the same constants,
-so that every key lands in the same bucket and slot as in the reference (the
-reference module cannot be imported without jax). Each builder returns the
-reference's own keys as numpy arrays; `tables_from_reference` turns them
-into the port's tensors. One path's tables are shipped, never the arrays it
-does not read (`class_bits`, the two-choice bucket beside a mono, group or
-gband table); the bitset width W is read off the stash planes, or carried
-as the plain int `gband_words` on the gband path (`table_words`).
+two-choice bucket of `_device_tables` (with inline bitsets for W <= 16,
+without them for W > 16), `_build_class_bands(_robust)`, `_np_band_combine`,
+`_build_groupband_tables`, `_build_groupcls_tables` and
+`_build_monocls_tables`, with the same constants, so that every key lands in
+the same bucket and slot as in the reference (the reference module cannot be
+imported without jax). Each builder returns the reference's own keys as
+numpy arrays; `tables_from_reference` turns them into the port's tensors.
+One path's tables are shipped, never the arrays it does not read (the
+two-choice bucket beside a mono, group, gband, groupcls or monocls table;
+`class_bits` where no class-id intersection runs); the bitset width W is
+read off the stash planes or `class_bits`, or carried as a plain int
+(`gband_words`, `class_words`) where the step reads only bands
+(`table_words`).
+
+Wide paths (W > 16), chosen as `_device_tables` chooses them: with the group
+probe, gband, else groupcls (class ids per probe row, the runs-compacted
+intersection over `class_bits`); without it, or when neither group table can
+be placed, monocls (a single-hash class-id table), else the two-choice
+class-id bucket. On those two the class bitsets ship as `class_bits`, or,
+where every class fits a 2-page band (`build_class_bands`, strict), as the
+band rows re-laid like the gband table (`class_page`, `class_band`) with W
+as `class_words`.
 
 Group bucket row layout (S = MONO_SLOTS slots):
   [hi x S | lo x S | vs_and (W, S) | vd_and (W, S) | mask x S]
@@ -33,6 +45,12 @@ Gband (wide, W > 16) tables, single-hash and dense:
   The table is shipped re-laid (`relayout_gband`, the band_tree_expand
   kernel's): a page vector `gband_page` (n_rows,) and the band rows
   `gband_band` (n_rows, 2 Pw), 256 bytes each at Pw = 32.
+Groupcls bucket row layout (wide): [hi x S | lo x S | cls cols (2g, S) |
+  mask x S], the g windows' class ids of the canonical code (vs) then of
+  its reverse complement (vd), -1 where absent.
+Monocls bucket row layout (wide): [hi x S | lo x S | vs x S | vd x S].
+Two-choice class-id bucket (wide, S = BUCKET_SLOTS): [hi x S | lo x S |
+  vsame x S | vdiff x S], with the index's own stash planes.
 """
 from __future__ import annotations
 
@@ -48,7 +66,9 @@ from nimble_tpu_torch.index.hashing import bucket_hashes_np
 from nimble_tpu_torch.observability import runlog
 
 MONO_SLOTS = 4
-MONO_MAX_BYTES = 6 << 30
+# the byte cap of every single-hash placement (group, mono, gband, groupcls,
+# monocls), read at import as the reference reads it (engine.py:115)
+MONO_MAX_BYTES = int(os.environ.get("NIMBLE_TPU_MONO_MAX_BYTES", 6 << 30))
 MONO_MAX_STASH = 64
 MONO_TIGHT_STASH = 8
 GROUP_MAX_WORDS = 8
@@ -72,6 +92,16 @@ MONO_KEYS = (
     "mono_stash_vd_bits",
 )
 INLINE_KEYS = ("bucket", "stash_hi", "stash_lo", "stash_vs_bits", "stash_vd_bits")
+GROUPCLS_KEYS = (
+    "groupcls_bucket",
+    "groupcls_stash_hi",
+    "groupcls_stash_lo",
+    "groupcls_stash_cols",
+    "groupcls_stash_mask",
+)
+MCLS_KEYS = ("mcls_bucket", "mcls_stash_hi", "mcls_stash_lo", "mcls_stash_vs", "mcls_stash_vd")
+# the wide two-choice probe: the class-id bucket and the index's stash
+CLASSES_KEYS = ("bucket", "stash_hi", "stash_lo", "stash_vsame", "stash_vdiff")
 
 # classes allowed to exceed the page span before robust banding gives up
 BAND_OUTLIER_CAP = 64
@@ -92,13 +122,16 @@ GBAND_KEYS = (
 
 
 def table_words(tables: Dict[str, torch.Tensor]) -> int:
-    """Bitset width W of a group, gband, mono or two-choice table set."""
-    if "gband_words" in tables:
-        return int(tables["gband_words"])
+    """Bitset width W of a table set of any path."""
+    for k in ("gband_words", "class_words"):
+        if k in tables:
+            return int(tables[k])
     if "group_stash_vs_and" in tables:
         return int(tables["group_stash_vs_and"].shape[1])
     if "mono_stash" in tables:
         return (int(tables["mono_stash"].shape[1]) - 2) // 2
+    if "class_bits" in tables:
+        return int(tables["class_bits"].shape[1])
     return int(tables["stash_vs_bits"].shape[1])
 
 
@@ -282,6 +315,19 @@ def build_mono_tables(index: KmerIndex) -> Optional[Dict[str, np.ndarray]]:
     }
 
 
+def _two_choice_bucket(index: KmerIndex, extra: int) -> np.ndarray:
+    """The index's two-choice table as (n_buckets, 4S + extra) rows
+    [hi x S | lo x S | vsame x S | vdiff x S | extra words, unset]."""
+    nb = index.n_buckets
+    S = BUCKET_SLOTS
+    packed = np.empty((nb, 4 * S + extra), dtype=np.int32)
+    packed[:, 0:S] = index.table_hi.reshape(nb, S).view(np.int32)
+    packed[:, S : 2 * S] = index.table_lo.reshape(nb, S).view(np.int32)
+    packed[:, 2 * S : 3 * S] = index.table_vsame.reshape(nb, S)
+    packed[:, 3 * S : 4 * S] = index.table_vdiff.reshape(nb, S)
+    return packed
+
+
 def build_inline_tables(index: KmerIndex) -> Dict[str, np.ndarray]:
     """The two-choice inline bucket of engine.py:_device_tables (W <= 16)
     and its stash bitsets, as numpy arrays: the fallback when mono
@@ -290,11 +336,7 @@ def build_inline_tables(index: KmerIndex) -> Dict[str, np.ndarray]:
     S = BUCKET_SLOTS
     W = index.bitset_words
     bits_of = _bits_of(index)
-    packed = np.empty((nb, 4 * S + 2 * S * W), dtype=np.int32)
-    packed[:, 0:S] = index.table_hi.reshape(nb, S).view(np.int32)
-    packed[:, S : 2 * S] = index.table_lo.reshape(nb, S).view(np.int32)
-    packed[:, 2 * S : 3 * S] = index.table_vsame.reshape(nb, S)
-    packed[:, 3 * S : 4 * S] = index.table_vdiff.reshape(nb, S)
+    packed = _two_choice_bucket(index, 2 * S * W)
     packed[:, 4 * S : 4 * S + S * W] = bits_of(index.table_vsame).reshape(nb, S * W)
     packed[:, 4 * S + S * W :] = bits_of(index.table_vdiff).reshape(nb, S * W)
     return {
@@ -304,6 +346,119 @@ def build_inline_tables(index: KmerIndex) -> Dict[str, np.ndarray]:
         "stash_vs_bits": bits_of(index.stash_vsame),
         "stash_vd_bits": bits_of(index.stash_vdiff),
     }
+
+
+def build_classes_tables(index: KmerIndex) -> Dict[str, np.ndarray]:
+    """The two-choice bucket of engine.py:_device_tables for W > 16, which
+    carries class ids and no inline bitsets, and the index's stash planes,
+    as numpy arrays: the wide fallback when monocls placement is
+    infeasible (engine.py:lookup_classes reads them)."""
+    return {
+        "bucket": _two_choice_bucket(index, 0),
+        "stash_hi": index.stash_hi.view(np.int32),
+        "stash_lo": index.stash_lo.view(np.int32),
+        "stash_vsame": index.stash_vsame.astype(np.int32),
+        "stash_vdiff": index.stash_vdiff.astype(np.int32),
+    }
+
+
+def build_monocls_tables(index: KmerIndex) -> Optional[Dict[str, np.ndarray]]:
+    """engine.py:_build_monocls_tables as numpy arrays: every occupied
+    two-choice entry reinserted by h1 into single-hash buckets of
+    MONO_SLOTS slots, with class ids as payload, planar rows [hi x S | lo x
+    S | vs x S | vd x S] (one 64-byte row a window). None when the index is
+    empty or placement blows its budget."""
+    occ = (index.table_vsame >= 0) | (index.table_vdiff >= 0)
+    socc = (index.stash_vsame >= 0) | (index.stash_vdiff >= 0)
+    hi = np.concatenate([index.table_hi[occ], index.stash_hi[socc]])
+    lo = np.concatenate([index.table_lo[occ], index.stash_lo[socc]])
+    vs = np.concatenate([index.table_vsame[occ], index.stash_vsame[socc]])
+    vd = np.concatenate([index.table_vdiff[occ], index.stash_vdiff[socc]])
+    if hi.shape[0] == 0:
+        return None
+    placement = _single_hash_placement(hi, lo, 4, MONO_SLOTS)
+    if placement is None:
+        return None
+    nb2, b, s, keys, skeys = placement
+
+    S = MONO_SLOTS
+    table = np.zeros((nb2, S * 4), dtype=np.int32)
+    table[:, 0:S] = -1  # EMPTY key sentinel in the hi plane
+    table[:, 2 * S :] = -1  # class planes default to miss
+    table[b, s] = hi[keys].view(np.int32)
+    table[b, S + s] = lo[keys].view(np.int32)
+    table[b, 2 * S + s] = vs[keys]
+    table[b, 3 * S + s] = vd[keys]
+
+    n_stash = skeys.shape[0]
+    pad = max(1, n_stash)
+    ms = {
+        "hi": np.full(pad, -1, dtype=np.int32),  # padding can never match
+        "lo": np.zeros(pad, dtype=np.int32),
+        "vs": np.full(pad, -1, dtype=np.int32),
+        "vd": np.full(pad, -1, dtype=np.int32),
+    }
+    if n_stash:
+        ms["hi"][:n_stash] = hi[skeys].view(np.int32)
+        ms["lo"][:n_stash] = lo[skeys].view(np.int32)
+        ms["vs"][:n_stash] = vs[skeys]
+        ms["vd"][:n_stash] = vd[skeys]
+    return {"mcls_bucket": table, **{f"mcls_stash_{k}": v for k, v in ms.items()}}
+
+
+def build_groupcls_tables(index: KmerIndex) -> Optional[Dict[str, np.ndarray]]:
+    """engine.py:_build_groupcls_tables as numpy arrays: single-hash
+    buckets over the canonical (k+g-1)-mer entries with the g windows'
+    class ids of both orientations as payload and the packed 4 x g-bit
+    presence mask (the narrow group table's), rows [hi x S | lo x S | cls
+    cols (2g, S) | mask x S]. None when the index has no group entries,
+    g > 8, or placement blows its budget."""
+    g = index.pair_g
+    hi = index.pair_hi
+    lo = index.pair_lo
+    vals = index.pair_vals
+    if hi is None or hi.shape[0] == 0 or g > 8:
+        return None
+    n = hi.shape[0]
+    entry = 2 + 2 * g + 1
+    placement = _single_hash_placement(hi, lo, entry, MONO_SLOTS)
+    if placement is None:
+        return None
+    nb2, b, s, keys, skeys = placement
+
+    present = (vals >= 0).astype(np.int32)
+    vs_mask = np.zeros(n, dtype=np.int32)
+    vd_mask = np.zeros(n, dtype=np.int32)
+    for i in range(g):
+        vs_mask |= present[:, i] << i
+        vd_mask |= present[:, g + i] << i
+    rev = lambda m: sum(((m >> i) & 1) << (g - 1 - i) for i in range(g))
+    mask_word = vs_mask | (vd_mask << 8) | (rev(vs_mask) << 16) | (rev(vd_mask) << 24)
+
+    S = MONO_SLOTS
+    table = np.zeros((nb2, S * entry), dtype=np.int32)
+    table[:, 0:S] = -1  # EMPTY key sentinel in the hi plane
+    table[:, 2 * S : 2 * S + 2 * g * S] = -1  # class planes default to miss
+    table[b, s] = hi[keys].view(np.int32)
+    table[b, S + s] = lo[keys].view(np.int32)
+    for c in range(2 * g):
+        table[b, 2 * S + c * S + s] = vals[keys, c]
+    table[b, 2 * S + 2 * g * S + s] = mask_word[keys]
+
+    n_stash = skeys.shape[0]
+    pad = max(1, n_stash)
+    gs = {
+        "hi": np.full(pad, -1, dtype=np.int32),  # padding can never match
+        "lo": np.zeros(pad, dtype=np.int32),
+        "cols": np.full((pad, 2 * g), -1, dtype=np.int32),
+        "mask": np.zeros(pad, dtype=np.int32),
+    }
+    if n_stash:
+        gs["hi"][:n_stash] = hi[skeys].view(np.int32)
+        gs["lo"][:n_stash] = lo[skeys].view(np.int32)
+        gs["cols"][:n_stash] = vals[skeys]
+        gs["mask"][:n_stash] = mask_word[skeys]
+    return {"groupcls_bucket": table, **{f"groupcls_stash_{k}": v for k, v in gs.items()}}
 
 
 def _class_spans(cb: np.ndarray, W: int):
@@ -333,16 +488,22 @@ def build_class_bands(index: KmerIndex):
     """engine.py:_build_class_bands — every class bitset as a 2-page band
     at a page-aligned offset, page size Pw = roundup8(max span). Returns
     (Pw, bandrow) with bandrow (C, 1 + 2 Pw) int32, or None when W <= 16,
-    the index has no classes, or 3 Pw > W (banding is not worth it)."""
+    the index has no classes, or 3 Pw > W (banding is not worth it).
+    Kept on the index object, as the reference keeps it: the engine's
+    tables and its chunk sizing both ask."""
+    cached = getattr(index, "_torch_class_bands", "unset")
+    if cached != "unset":
+        return cached
     W = index.bitset_words
     cb = index.class_bits.view(np.int32)
-    if not cb.shape[0] or W <= INLINE_BITS_MAX_WORDS:
-        return None
-    first, last = _class_spans(cb, W)
-    Pw = max(8, -(-int(np.max(last - first + 1)) // 8) * 8)
-    if 3 * Pw > W:
-        return None
-    return Pw, _band_rows(cb, np.ones(cb.shape[0], dtype=bool), first, Pw, W)
+    out = None
+    if cb.shape[0] and W > INLINE_BITS_MAX_WORDS:
+        first, last = _class_spans(cb, W)
+        Pw = max(8, -(-int(np.max(last - first + 1)) // 8) * 8)
+        if 3 * Pw <= W:
+            out = Pw, _band_rows(cb, np.ones(cb.shape[0], dtype=bool), first, Pw, W)
+    index._torch_class_bands = out
+    return out
 
 
 def build_class_bands_robust(index: KmerIndex):
@@ -601,28 +762,59 @@ def groupband_tables(index: KmerIndex) -> Optional[Dict[str, np.ndarray]]:
     return out
 
 
+def _relay_bands(table: torch.Tensor, stage: str):
+    """relayout_gband of a [page | band] table already on its device, timed
+    as the run log's `stage` (the copy to the card stays out of it).
+    Returns (page, band)."""
+    with runlog().stage(stage, rows=table.shape[0], bytes=table.numel() * 4, device=str(table.device)):
+        if table.is_cuda:
+            torch.cuda.synchronize(table.device)
+        out = relayout_gband(table)
+        if table.is_cuda:
+            torch.cuda.synchronize(table.device)
+    return out
+
+
+def _as_tensor(a, device) -> torch.Tensor:
+    """A numpy array as an int32 tensor on `device`; copies on the host only
+    what is not already writable contiguous int32."""
+    return torch.from_numpy(np.require(a, np.int32, ["C", "W"])).to(device)
+
+
 def _gband_to_device(np_tables, W: int, device) -> Dict[str, torch.Tensor]:
     """The gband arrays the step reads, as tensors, plus W as a plain int.
     Only the default layout is taken: the reference's two-choice and
     indirect layouts (NIMBLE_TPU_GBAND_PLACEMENT=two,
-    NIMBLE_TPU_GBAND_INDIRECT=1) are not ported."""
+    NIMBLE_TPU_GBAND_INDIRECT=1) are not ported, and no ROADMAP item
+    queues them."""
     if "gband_single" not in np_tables or "gband_ptr8" in np_tables:
         raise NotImplementedError(
-            "only the single-hash dense gband layout is ported; the two-choice and "
-            "indirect layouts are ROADMAP Queue 1 item 10")
+            "only the single-hash dense gband layout is ported; the reference's two-choice "
+            "(NIMBLE_TPU_GBAND_PLACEMENT=two) and indirect (NIMBLE_TPU_GBAND_INDIRECT=1) "
+            "layouts are not")
     width = np_tables["gband_bucket"].shape[1]
     if width != MONO_SLOTS * (4 if "gband_packedrow" in np_tables else 5):
         raise ValueError(f"gband bucket rows of {width} words do not match the packed-row marker")
-    as_t = lambda a: torch.from_numpy(np.require(a, np.int32, ["C", "W"])).to(device)
-    out = {k: as_t(np_tables[k]) for k in GBAND_KEYS if k != "gband_table"}
-    table = as_t(np_tables["gband_table"])
-    with runlog().stage("gband_relayout", rows=table.shape[0], bytes=table.numel() * 4, device=str(table.device)):
-        if table.is_cuda:  # the copy to the card stays out of the stage
-            torch.cuda.synchronize(table.device)
-        out["gband_page"], out["gband_band"] = relayout_gband(table)
-        if table.is_cuda:
-            torch.cuda.synchronize(table.device)
+    out = {k: _as_tensor(np_tables[k], device) for k in GBAND_KEYS if k != "gband_table"}
+    out["gband_page"], out["gband_band"] = _relay_bands(
+        _as_tensor(np_tables["gband_table"], device), "gband_relayout")
     return {**out, "gband_words": int(W)}
+
+
+def _class_tables_to_device(np_tables, keys, class_bits: np.ndarray, bandrow: Optional[np.ndarray],
+                            device) -> Dict[str, torch.Tensor]:
+    """A wide class-id path's arrays (`keys`) as tensors, with the class
+    bitsets the intersection reads: `class_bits` (C, W), or, where the
+    strict class bands exist, their rows re-laid as `class_page` (C,) and
+    `class_band` (C, 2 Pw) (the run log's `class_relayout` stage) and W as
+    the plain int `class_words`."""
+    out = {k: _as_tensor(np_tables[k], device) for k in keys}
+    if bandrow is None:
+        out["class_bits"] = _as_tensor(class_bits, device)
+    else:
+        out["class_page"], out["class_band"] = _relay_bands(_as_tensor(bandrow, device), "class_relayout")
+        out["class_words"] = int(class_bits.shape[1])
+    return out
 
 
 def relayout_gband(table: torch.Tensor):
@@ -655,19 +847,27 @@ def tables_from_reference(np_tables, device, owned: bool = False) -> Dict[str, t
     -> the port's tensors on `device`, for the path the reference's
     `_score_mate` would take on them: group, else gband (W from its
     `class_bits` placeholder; its band table split by relayout_gband, the
-    run log's `gband_relayout` stage), else mono (re-laid slot-major), else
-    two-choice. Only that path's entries are carried. The mono table is
-    re-laid on `device`, as the run log's `mono_relayout` stage; on the
-    CPU, in a copy of the caller's array, unless `owned` says the arrays
-    are this call's to change (device_tables' fresh build), so that a
-    multi-GB table is not duplicated on the host."""
-    # copies only what is not already writable contiguous int32
-    as_t = lambda a: torch.from_numpy(np.require(a, np.int32, ["C", "W"])).to(device)
-    if all(k in np_tables for k in GROUP_KEYS):
+    run log's `gband_relayout` stage), else groupcls, else monocls, else
+    mono (re-laid slot-major), else the two-choice inline bucket (W <= 16),
+    else the wide two-choice class-id bucket; the class-id paths with
+    `class_bits` or, where the reference ships `class_bandrow`, the band
+    rows re-laid (`_class_tables_to_device`). Only that path's entries are
+    carried. The mono table is re-laid on `device`, as the run log's
+    `mono_relayout` stage; on the CPU, in a copy of the caller's array,
+    unless `owned` says the arrays are this call's to change (device_tables'
+    fresh build), so that a multi-GB table is not duplicated on the host."""
+    as_t = lambda a: _as_tensor(a, device)
+    has = lambda keys: all(k in np_tables for k in keys)
+    if has(GROUP_KEYS):
         return {k: as_t(np_tables[k]) for k in GROUP_KEYS}
-    if all(k in np_tables for k in GBAND_KEYS):
+    if has(GBAND_KEYS):
         return _gband_to_device(np_tables, np_tables["class_bits"].shape[1], device)
-    if all(k in np_tables for k in MONO_KEYS):
+    class_bits = np_tables.get("class_bits")
+    if has(GROUPCLS_KEYS):
+        return _class_tables_to_device(np_tables, GROUPCLS_KEYS, class_bits, None, device)
+    if has(MCLS_KEYS):
+        return _class_tables_to_device(np_tables, MCLS_KEYS, class_bits, np_tables.get("class_bandrow"), device)
+    if has(MONO_KEYS):
         stash = np.concatenate(
             [np.asarray(np_tables["mono_stash_hi"])[:, None],
              np.asarray(np_tables["mono_stash_lo"])[:, None],
@@ -685,10 +885,11 @@ def tables_from_reference(np_tables, device, owned: bool = False) -> Dict[str, t
             if bucket.is_cuda:
                 torch.cuda.synchronize(bucket.device)
         return {"mono_bucket": bucket, "mono_stash": as_t(stash)}
-    missing = [k for k in INLINE_KEYS if k not in np_tables]
-    if missing:
-        raise ValueError(f"reference tables carry no group, mono or two-choice entries (missing {missing})")
-    return {k: as_t(np_tables[k]) for k in INLINE_KEYS}
+    if has(INLINE_KEYS):
+        return {k: as_t(np_tables[k]) for k in INLINE_KEYS}
+    if has(CLASSES_KEYS) and class_bits is not None:
+        return _class_tables_to_device(np_tables, CLASSES_KEYS, class_bits, np_tables.get("class_bandrow"), device)
+    raise ValueError(f"reference tables carry no group, mono or two-choice entries (keys {sorted(np_tables)})")
 
 
 def device_tables(index: KmerIndex, device, group_ok: bool = True) -> Dict[str, torch.Tensor]:
@@ -696,30 +897,31 @@ def device_tables(index: KmerIndex, device, group_ok: bool = True) -> Dict[str, 
     `_device_tables(index, group_ok=group_ok)` chooses. W <= 16: the group
     table when allowed, the index has group entries, W <= 8 and placement
     fits; else the mono table when placement fits; else the two-choice
-    inline bucket. W > 16: the gband tables when allowed and the index has
-    group entries and banding works; the reference's other wide paths
-    (groupcls, monocls and its two-choice fallback) raise
-    NotImplementedError."""
+    inline bucket. W > 16, when allowed and the index has group entries:
+    the gband tables when banding works and they place, else the groupcls
+    table when it places. Otherwise the monocls table when it places, else
+    the two-choice class-id bucket, each with the strict class bands where
+    every class fits one (`build_class_bands`), else with `class_bits`."""
     W = index.bitset_words
-    if W > INLINE_BITS_MAX_WORDS:
-        if not (group_ok and index.has_pairs):
-            raise NotImplementedError(
-                f"{W}-word bitsets without the group probe (--probe mono, num_mismatches, "
-                "kmer_stride > 1, NIMBLE_TPU_NO_GROUP_PROBE=1 or reads shorter than k+g-1) take "
-                "the reference's monocls path, which is not ported: the wide paths are ROADMAP "
-                "Queue 1 item 10")
+    if W <= INLINE_BITS_MAX_WORDS:
+        tables = None
+        if group_ok and W <= GROUP_MAX_WORDS:
+            tables = build_group_tables(index)
+        if tables is None:
+            tables = build_mono_tables(index)
+        if tables is None:
+            tables = build_inline_tables(index)
+        return tables_from_reference(tables, device, owned=True)  # built for this call
+    class_bits = index.class_bits.view(np.int32)
+    if group_ok and index.has_pairs:
         gband = groupband_tables(index)
-        if gband is None:
-            raise NotImplementedError(
-                f"this {W}-word library cannot be banded (or its gband table cannot be placed), "
-                "so the reference takes its groupcls path, which is not ported: the wide paths "
-                "are ROADMAP Queue 1 item 10")
-        return _gband_to_device(gband, W, device)
-    tables = None
-    if group_ok and W <= GROUP_MAX_WORDS:
-        tables = build_group_tables(index)
+        if gband is not None:
+            return _gband_to_device(gband, W, device)
+        gcls = build_groupcls_tables(index)
+        if gcls is not None:
+            return _class_tables_to_device(gcls, GROUPCLS_KEYS, class_bits, None, device)
+    tables, keys = build_monocls_tables(index), MCLS_KEYS
     if tables is None:
-        tables = build_mono_tables(index)
-    if tables is None:
-        tables = build_inline_tables(index)
-    return tables_from_reference(tables, device, owned=True)  # built for this call
+        tables, keys = build_classes_tables(index), CLASSES_KEYS
+    bands = build_class_bands(index)
+    return _class_tables_to_device(tables, keys, class_bits, bands[1] if bands else None, device)

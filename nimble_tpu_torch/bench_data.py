@@ -10,7 +10,7 @@ each); reads: 100 bp with 1% substitutions, half reverse-complemented.
 The 20k-allele HLA/KIR library (`write_wide`): scripts/bigindex.py's
 build_library with its seed and draws (20 families x 1,000 alleles x 3 kb,
 25 SNPs each: 20,000 features, W = 625 words), and reads and pairs drawn
-from it.
+from it; or its first families alone, in family order or allele-major.
 """
 from __future__ import annotations
 
@@ -129,25 +129,40 @@ WIDE_SNPS = 25
 WIDE_ERROR = 0.01
 
 
-def wide_library(outdir):
+def wide_library(outdir, families: int = WIDE_FAMILIES, interleaved: bool = False):
     """scripts/bigindex.py:build_library's 20k-allele library, with its seed
     and draws (the alleles of scripts/make_big20k_cli.py too), written as
-    `big20k.json`, a [Config, Data] JSON. Returns (path, alleles (20,000,
-    3,000) int8)."""
+    `big20k.json`, a [Config, Data] JSON; or its first `families` families
+    (the same draws), written as `wide<families>.json`. `interleaved`
+    writes the features allele-major (feature a * families + f, as
+    `wide<families>_interleaved.json`), so that a class's features are not
+    contiguous in library order. Returns (path, alleles (n, 3,000) int8 in
+    the library's order)."""
     rng = np.random.default_rng(0)
-    data = Data()
-    alleles = np.empty((WIDE_FAMILIES * WIDE_ALLELES, WIDE_LEN), dtype=np.int8)
-    for fam in range(WIDE_FAMILIES):
+    by_family = np.empty((families, WIDE_ALLELES, WIDE_LEN), dtype=np.int8)
+    for fam in range(families):
         bb = rng.integers(0, 4, size=WIDE_LEN).astype(np.int8)
         for a in range(WIDE_ALLELES):
             s = bb.copy()
             pos = rng.integers(0, WIDE_LEN, size=WIDE_SNPS)
             s[pos] = rng.integers(0, 4, size=WIDE_SNPS).astype(np.int8)
-            alleles[fam * WIDE_ALLELES + a] = s
-            for col, v in zip(data.columns, ("hla_kir_20k", f"F{fam:02d}*{a:04d}", str(WIDE_LEN),
-                                             seqmod.decode(s))):
-                col.append(v)
-    lib = pathlib.Path(outdir) / "big20k.json"
+            by_family[fam, a] = s
+    if interleaved:
+        order = [(f, a) for a in range(WIDE_ALLELES) for f in range(families)]
+    else:
+        order = [(f, a) for f in range(families) for a in range(WIDE_ALLELES)]
+    data = Data()
+    alleles = np.empty((len(order), WIDE_LEN), dtype=np.int8)
+    for i, (fam, a) in enumerate(order):
+        alleles[i] = by_family[fam, a]
+        for col, v in zip(data.columns, ("hla_kir_20k", f"F{fam:02d}*{a:04d}", str(WIDE_LEN),
+                                         seqmod.decode(alleles[i]))):
+            col.append(v)
+    if families == WIDE_FAMILIES and not interleaved:
+        name = "big20k.json"
+    else:
+        name = f"wide{families}{'_interleaved' if interleaved else ''}.json"
+    lib = pathlib.Path(outdir) / name
     with open(lib, "w") as f:
         json.dump([Config().to_dict(), data.__dict__], f)
     return str(lib), alleles
@@ -167,19 +182,21 @@ def _fastq_records(codes, prefix: bytes, first: int, suffix: bytes = b"") -> byt
                     for i, r in enumerate(_LUT[codes]))
 
 
-def write_wide(outdir, n_reads: int, n_pairs: int):
-    """The 20k-allele library (`wide_library`) and gz FASTQs of n_reads
-    single-end 100 bp reads from random alleles (half reverse-complemented)
-    and of n_pairs pairs whose mates come from one 200-400 bp fragment of
-    one allele, either strand; 1% substitutions. Returns (library path,
-    FASTQ path, R1 path, R2 path)."""
+def write_wide(outdir, n_reads: int, n_pairs: int, families: int = WIDE_FAMILIES,
+               interleaved: bool = False):
+    """A wide library (`wide_library`: the 20k-allele one by default) and
+    gz FASTQs of n_reads single-end 100 bp reads from random alleles (half
+    reverse-complemented) and of n_pairs pairs whose mates come from one
+    200-400 bp fragment of one allele, either strand; 1% substitutions.
+    Returns (library path, FASTQ path, R1 path, R2 path)."""
     outdir = pathlib.Path(outdir)
     outdir.mkdir(parents=True, exist_ok=True)
-    lib, alleles = wide_library(outdir)
+    lib, alleles = wide_library(outdir, families, interleaved)
     n_al = alleles.shape[0]
     rng = np.random.default_rng(7)
     block = 1 << 17
-    fq = outdir / f"reads20k_{n_reads}.fastq.gz"
+    tag = "20k" if lib.endswith("big20k.json") else pathlib.Path(lib).stem
+    fq = outdir / f"reads{tag}_{n_reads}.fastq.gz"
     with gzip.open(fq, "wb", compresslevel=1) as f:
         for s0 in range(0, n_reads, block):
             n = min(block, n_reads - s0)
@@ -188,8 +205,8 @@ def write_wide(outdir, n_reads: int, n_pairs: int):
             rc = rng.random(n) < 0.5
             codes[rc] = seqmod.revcomp_codes(codes[rc])
             f.write(_fastq_records(codes, b"r", s0))
-    r1 = outdir / f"pairs20k_r1_{n_pairs}.fastq.gz"
-    r2 = outdir / f"pairs20k_r2_{n_pairs}.fastq.gz"
+    r1 = outdir / f"pairs{tag}_r1_{n_pairs}.fastq.gz"
+    r2 = outdir / f"pairs{tag}_r2_{n_pairs}.fastq.gz"
     with gzip.open(r1, "wb", compresslevel=1) as f1, gzip.open(r2, "wb", compresslevel=1) as f2:
         for s0 in range(0, n_pairs, block):
             n = min(block, n_pairs - s0)

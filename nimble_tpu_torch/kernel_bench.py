@@ -33,6 +33,10 @@ WORK/workloads.json.
 against experimental variants of it, built from csrc/band_tree_expand.cu
 with a patch (`band_variants`).
 
+`class_stages` and `stage_ms` cut one step of a class-id wide path
+(groupcls, monocls, the wide two-choice probe) into its stages and time
+each on the card; chip_smoke.py prints them.
+
 `run` calls only what the port has had since its gband slice and takes
 each table in the layout that checkout's engine ships, so this file, copied
 into an older checkout's nimble_tpu_torch/ and run from that checkout's
@@ -301,6 +305,61 @@ def band_variants(args, rounds: int = 2) -> dict:
         for name, fn in variants.items():
             times[name].append(device_ms(fn))
     return times
+
+
+def class_stages(eng, codes, lens):
+    """One single-end step of a class-id engine (groupcls, monocls or the
+    wide two-choice probe) on these reads, cut into its stages: (name, fn)
+    pairs, each fn taking the previous one's result (the first takes None).
+    Run in order they are pack_outputs(align_step(...)): the window stage
+    (`class_keys`, the kmer_keys kernel), the probe (`class_probe`: class
+    ids, coverage, orientation), the intersection (`intersect_classes`) and
+    `combine_mates` + `pack_outputs`."""
+    from nimble_tpu_torch.align import engine as TE
+
+    t, p, L = eng.tables, eng.params, codes.shape[1]
+    return [
+        ("window", lambda _: TE.class_keys(codes, lens, t, p)),
+        ("probe", lambda keys: TE.class_probe(keys, lens, L, t, p)),
+        ("intersection", lambda pr: (TE.intersect_classes(pr[0], t), *pr[1:])),
+        ("combine + pack", lambda mate: TE.pack_outputs(TE.combine_mates(p, lens, mate))),
+    ]
+
+
+def stage_ms(stages, reps: int = 5) -> dict:
+    """Each stage's time (ms) on the card: CUDA events around it, the card
+    idle before it, so a stage's time is the longer of its kernels' and its
+    host's launches (what the step spends on it); and "step", the stages
+    run back to back. Median of `reps` rounds after one warm-up round."""
+    import torch
+
+    def timed(fn):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b), out
+
+    times = {name: [] for name, _ in stages}
+    times["step"] = []
+    for _ in range(reps + 1):
+        x = None
+        for name, fn in stages:
+            torch.cuda.synchronize()
+            ms, x = timed(lambda: fn(x))
+            times[name].append(ms)
+
+        def whole():
+            y = None
+            for _, fn in stages:
+                y = fn(y)
+            return y
+
+        torch.cuda.synchronize()
+        times["step"].append(timed(whole)[0])
+    return {k: statistics.median(v[1:]) for k, v in times.items()}
 
 
 def fastq_head(fq: str, B: int, L: int):

@@ -11,7 +11,7 @@ nimble_tpu keeps those prints and adds:
   * Throughput — a running reads/s counter.
 
 (The reference's jax.profiler `profile()` is not copied: ROADMAP Queue 1
-item 14 moves it to torch.profiler.)
+item 5 moves it to torch.profiler.)
 """
 from __future__ import annotations
 

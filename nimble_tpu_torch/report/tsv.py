@@ -174,7 +174,7 @@ def report(
     """The `report` subcommand (reference: __main__.py:254-297), on the
     exact float64 host pipeline (the bit-exactness oracle). The reference
     package's device and distributed engines are not ported yet (ROADMAP
-    Queue 1 items 12-13); the CLI refuses them.
+    Queue 1 items 7-8); the CLI refuses them.
 
     stream: run the host path via bounded spill buckets (quant/stream.py)
     so inputs larger than RAM work, bit-identically. None = auto: stream

@@ -194,16 +194,20 @@ def test_auto_chunk_size_uncapped_on_cuda(lib):
 
 
 def test_engine_refuses_unported_paths(lib):
-    """Libraries wider than 512 features (W > 16) need the wide paths; a
-    step on tables of no narrow path raises."""
+    """A library wider than 512 features (W = 19 > 16) takes the reference's
+    groupcls path with its tables; a step on tables of no path (the group
+    tables without the group probe's g) raises."""
     _, _, index, _, tables = lib
     _, wide = _library(n_features=600, length=60)
-    _, wide_index = build_both(wide, Config())
-    assert wide_index.bitset_words > 16
-    with pytest.raises(NotImplementedError, match="wide paths"):
-        T.AlignEngine(wide_index, Config(), CPU)
+    ref_wide, wide_index = build_both(wide, Config())
+    assert wide_index.bitset_words == 19
+    eng = T.AlignEngine(wide_index, Config(), CPU)
+    assert eng.params.group_g == wide_index.pair_g and eng.wire == "full"
+    want = tables_from_reference({k: np.asarray(v) for k, v in E._device_tables(ref_wide).items()}, CPU)
+    assert set(eng.tables) == set(want) and "groupcls_bucket" in want
+    assert all(torch.equal(eng.tables[k], want[k]) for k in want)
     p = T.AlignParams.from_config(Config(), index)  # group_g = 0: not the group path
-    with pytest.raises(NotImplementedError, match="wide paths"):
+    with pytest.raises(ValueError, match="tables of no align path"):
         T.align_step(tables, p, torch.zeros((2, 40), dtype=torch.int8), torch.full((2,), 40, dtype=torch.int32))
 
 

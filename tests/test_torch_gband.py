@@ -5,8 +5,9 @@ pre-AND), the shared `.gband` sidecar in both directions, the band
 intersection's plain version against `_band_tree` + `_expand_band` and
 `band_tree_expand_pallas` in interpret mode, `align_step` on every output
 key, the idlist wire word for word and the engine's emit cap. Libraries the
-reference sends to its other wide paths are refused. Everything compared is
-integer except one float32 compare, which both sides make in float32."""
+reference sends to its other wide paths get those paths (held in full in
+tests/test_torch_wide.py). Everything compared is integer except one float32
+compare, which both sides make in float32."""
 import copy
 import dataclasses
 import json
@@ -647,13 +648,14 @@ def test_auto_chunk_size_wide_banded_branch(fam, max_len, paired):
     assert eng.chunk_size == min(cuda, T.CPU_CHUNK_MAX)
 
 
-# --- what stays refused ---------------------------------------------------
+# --- the other wide paths -----------------------------------------------
 
 
-def _groupcls_index():
+def groupcls_seqs():
     """test_wide_paths.py:31's library: a backbone and 1,112 variants of
-    it, whose classes span the whole feature space, so banding fails and
-    the reference takes groupcls."""
+    it, whose classes span the whole feature space (W = 35), so banding
+    fails and the reference takes groupcls; a backbone read crosses more
+    than RUN_BLOCK classes."""
     rng = np.random.default_rng(19)
     backbone = rng.integers(0, 4, size=600).astype(np.int8)
     seqs = [backbone]
@@ -665,23 +667,42 @@ def _groupcls_index():
         s = backbone.copy()
         s[rng.integers(320, 600, size=4)] = rng.integers(0, 4, size=4)
         seqs.append(s)
-    return build_both(make_data(seqs), Config(), k=K_LEN)
+    return seqs
+
+
+def _groupcls_index():
+    return build_both(make_data(groupcls_seqs()), Config(), k=K_LEN)
+
+
+def _same_tables(port, ref_np):
+    """The port's device tables equal the reference's `_device_tables`
+    output as tables_from_reference carries it."""
+    want = TT.tables_from_reference(ref_np, CPU)
+    assert set(port) == set(want)
+    for k, v in want.items():
+        assert (port[k] == v) if isinstance(v, int) else torch.equal(port[k], v), k
 
 
 def test_wide_paths_the_reference_takes_elsewhere_are_refused(fam, monkeypatch):
-    """groupcls (banding infeasible), monocls (--probe mono, i.e. no group
-    entries, or NIMBLE_TPU_NO_GROUP_PROBE=1) raise at engine build, naming
-    the ROADMAP item."""
+    """The libraries the reference sends past gband get its path and its
+    tables: groupcls where banding is infeasible; monocls, with the class
+    bands, under --probe mono (no group entries) and under
+    NIMBLE_TPU_NO_GROUP_PROBE=1."""
     _, data, _, _, _, _ = fam
     gcls, port_gcls = _groupcls_index()
-    assert "groupcls_bucket" in E._device_tables(gcls)
-    with pytest.raises(NotImplementedError, match="groupcls.*Queue 1 item 10"):
-        T.AlignEngine(port_gcls, Config(), CPU)
+    ref_np = {k: np.asarray(v) for k, v in E._device_tables(gcls).items()}
+    assert "groupcls_bucket" in ref_np
+    eng = T.AlignEngine(port_gcls, Config(), CPU)
+    assert eng.params.group_g == gcls.pair_g and "groupcls_bucket" in eng.tables
+    _same_tables(eng.tables, ref_np)
     mono, port_mono = build_both(data, Config(), k=K_LEN, group_g=0)
-    assert "mcls_bucket" in E._device_tables(mono)
-    with pytest.raises(NotImplementedError, match="monocls.*Queue 1 item 10"):
-        T.AlignEngine(port_mono, Config(), CPU)
-    _, _, _, _, _, index = fam
+    ref_np = {k: np.asarray(v) for k, v in E._device_tables(mono).items()}
+    assert "mcls_bucket" in ref_np and "class_bandrow" in ref_np
+    eng = T.AlignEngine(port_mono, Config(), CPU)
+    assert eng.params.group_g == 0 and "class_band" in eng.tables
+    _same_tables(eng.tables, ref_np)
+    _, _, index, _, _, port_index = fam
     monkeypatch.setenv("NIMBLE_TPU_NO_GROUP_PROBE", "1")
-    with pytest.raises(NotImplementedError, match="monocls.*Queue 1 item 10"):
-        T.AlignEngine(index, Config(), CPU)
+    eng = T.AlignEngine(port_index, Config(), CPU)
+    assert eng.params.group_g == 0
+    _same_tables(eng.tables, {k: np.asarray(v) for k, v in E._device_tables(index, group_ok=False).items()})

@@ -5,8 +5,7 @@ align --device cpu` (idlist or band-row wire) must give byte-identical TSVs,
 for single-end FASTQ, a paired tagged BAM, group_on, intersect_level = 1,
 max_hits_to_report = 1 and discard_multiple_matches, with reads shorter than
 k+g-1 among them. Also: NIMBLE_TPU_NO_GROUP_PROBE=1 takes both packages
-off the group probe, and a wide library refused by the port fails its CLI
-with the ROADMAP item named."""
+off the group probe, and `--probe mono` takes both onto monocls."""
 import json
 import pathlib
 import shutil
@@ -152,7 +151,7 @@ def test_no_group_probe_env_matches_reference(ws, monkeypatch):
     (engine.py:2746), and the port with it: on a narrow golden library with
     noisy reads (1-3% substitutions), where the group and mono probes give
     different TSVs, both CLIs give the same bytes. On the wide library it
-    means the reference's monocls path, which the port refuses."""
+    means the reference's monocls path (banded), and the port's."""
     shutil.copy(GOLD / "lib_base.json", ws / "lib_base.json")
     _, data = json.loads((GOLD / "lib_base.json").read_text())
     seqs = [seqmod.encode(s) for s in data["columns"][3]]
@@ -171,14 +170,12 @@ def test_no_group_probe_env_matches_reference(ws, monkeypatch):
     assert ref != group_ref  # the variable changes the reference's output here
     assert port == ref
 
-    out = ws / "refused.tsv"
-    assert port_cli(["align", "--reference", str(ws / "lib_wide.json"), "--output", str(out),
-                     "--input", str(ws / "single.fastq"), "--device", "cpu"]) != 0
+    ref, port = _both(ws, "wide-no-group", "lib_wide.json", ["single.fastq"])
+    assert ref.count(b"\n") > 20 and port == ref
 
 
-def test_probe_mono_on_wide_library_is_refused(ws, capsys):
-    rc = port_cli(["align", "--reference", str(ws / "lib_wide.json"), "--output", str(ws / "mono.tsv"),
-                   "--input", str(ws / "single.fastq"), "--probe", "mono", "--device", "cpu"])
-    assert rc != 0
-    err = capsys.readouterr().err
-    assert "monocls" in err and "ROADMAP Queue 1 item 10" in err
+def test_probe_mono_on_wide_library_is_refused(ws):
+    """`--probe mono` on the wide library: the reference's banded monocls
+    path, byte for byte."""
+    ref, port = _both(ws, "wide-probe-mono", "lib_wide.json", ["single.fastq"], ["--probe", "mono"])
+    assert ref.count(b"\n") > 20 and port == ref

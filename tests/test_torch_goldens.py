@@ -78,32 +78,32 @@ def test_golden_without_native_io(case, staging, monkeypatch):
 
 
 @pytest.mark.parametrize(
-    "args",
+    "args, item",
     [
-        ["align", "--mesh", "data=2"],
-        ["align", "--resume"],
+        (["align", "--mesh", "data=2"], "ROADMAP Queue 1 item 8"),
+        (["align", "--resume"], "ROADMAP Queue 1 item 4"),
     ],
     ids=["mesh", "resume"],
 )
-def test_align_refuses_unported_options(args, staging, capsys):
+def test_align_refuses_unported_options(args, item, staging, capsys):
     rc = cli([args[0], "--reference", str(staging / "lib_base.json"),
               "--output", str(staging / "refused.tsv"),
               "--input", str(staging / "r1.fastq"), *args[1:], "--device", "cpu"])
     assert rc == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    assert item in capsys.readouterr().err
     assert not (staging / "refused.tsv").exists()
 
 
 @pytest.mark.parametrize(
-    "args",
-    [["report", "-i", "x.tsv", "-o", "y.tsv", "--device"],
-     ["report", "-i", "x.tsv", "-o", "y.tsv", "--distributed", "2"],
-     ["index", "--reference", "lib.json", "--warm"]],
+    "args, item",
+    [(["report", "-i", "x.tsv", "-o", "y.tsv", "--device"], "ROADMAP Queue 1 item 7"),
+     (["report", "-i", "x.tsv", "-o", "y.tsv", "--distributed", "2"], "ROADMAP Queue 1 items 7-8"),
+     (["index", "--reference", "lib.json", "--warm"], "ROADMAP Queue 1 item 5")],
     ids=["report-device", "report-distributed", "index-warm"],
 )
-def test_unported_subcommand_options_exit_nonzero(args, capsys):
+def test_unported_subcommand_options_exit_nonzero(args, item, capsys):
     assert cli(args) == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    assert item in capsys.readouterr().err
 
 
 def test_align_on_cuda_without_a_card_raises(staging, monkeypatch):

@@ -278,3 +278,24 @@ def test_wide_generator_writes_the_bigindex_library(tmp_path):
             lines = f.read().splitlines()
         assert len(lines) == 4 * n and all(len(s) == bench_data.READ_LEN and set(s) <= set("ACGT")
                                            for s in lines[1::4]), path
+
+
+def test_wide_generator_cuts_and_interleaves_families(tmp_path):
+    """bench_data.wide_library's first F families are the 20k library's
+    first F x 1,000 records (its draws come first); `interleaved` writes
+    the same records allele-major (feature a * F + f)."""
+    from nimble_tpu_torch import bench_data
+
+    F, A = 3, bench_data.WIDE_ALLELES
+    lib, fam = bench_data.wide_library(tmp_path, F)
+    ilib, inter = bench_data.wide_library(tmp_path, F, interleaved=True)
+    assert lib.endswith("wide3.json") and ilib.endswith("wide3_interleaved.json")
+    cols = [json.load(open(p))[1]["columns"] for p in (lib, ilib)]
+    order = np.arange(F * A).reshape(F, A).T.reshape(-1)  # allele-major
+    assert np.array_equal(inter, fam[order])
+    for c in range(4):
+        assert cols[1][c] == [cols[0][c][i] for i in order]
+    assert cols[0][1][A] == "F01*0000" and cols[1][1][1] == "F01*0000"
+    big_lib, big = bench_data.wide_library(tmp_path)
+    assert np.array_equal(big[: F * A], fam)
+    assert json.load(open(big_lib))[1]["columns"][3][: F * A] == cols[0][3]

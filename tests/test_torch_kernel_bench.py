@@ -103,3 +103,23 @@ def test_band_args_read_both_table_layouts():
     assert KB.kernel_bytes("band_tree_expand", split) == 6 * 4 * 5 + 4 * 6 * 30 + rows * 17 * 4
     for a, b in zip(KB.band_args(split), KB.band_args(old)):
         assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+
+
+@pytest.mark.parametrize("probe, key", [("group", "groupcls_bucket"), ("mono", "mcls_bucket")])
+def test_class_stages_compose_the_step(tmp_path, probe, key):
+    """The stages that chip_smoke.py times, run in order, are the class-id
+    paths' align_step + pack_outputs (one family of the wide generator:
+    W = 32, no bands; groupcls, and monocls under --probe mono)."""
+    from nimble_tpu_torch.align import engine as T
+
+    lib, fq, _, _ = bench_data.write_wide(tmp_path, 64, 0, families=1)
+    _, eng = KB.engine(lib, group_g=0 if probe == "mono" else None, device="cpu", chunk_size=64)
+    assert key in eng.tables and "class_bits" in eng.tables
+    codes, lens = (torch.from_numpy(a) for a in KB.fastq_head(fq, 64, eng.max_len))
+    x = None
+    stages = KB.class_stages(eng, codes, lens)
+    for _, fn in stages:
+        x = fn(x)
+    assert [name for name, _ in stages] == ["window", "probe", "intersection", "combine + pack"]
+    want = T.pack_outputs(T.align_step(eng.tables, eng.params, codes, lens))
+    assert torch.equal(x, want) and T.unpack_outputs(want.numpy(), 32, 64)["pass_"].any()

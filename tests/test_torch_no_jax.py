@@ -47,37 +47,53 @@ def test_align_probe_mono_runs_without_jax(tmp_path):
     _align_without_jax(tmp_path, ["--probe", "mono"], "golden_probe_mono.tsv")
 
 
-def test_wide_align_runs_without_jax(tmp_path):
-    """The gband path (band tables, sidecar, band_tree_expand, idlist wire)
-    imports no jax either, and its TSV equals the reference's."""
+def _wide_without_jax(tmp_path, seqs, flags, start: int = 50):
+    """The port's CLI on a wide library, with jax and the JAX package
+    unimportable, against the reference's TSV on the same reads (100 bp
+    from `start` of every seventh allele)."""
     import json
 
     from nimble_tpu import seq as seqmod
     from nimble_tpu.__main__ import main as ref_cli
     from nimble_tpu.config import Config
     from nimble_tpu.io.fastq import write_fastq
-    from tests.test_torch_gband import family_seqs
 
-    seqs = family_seqs()
     cols = [["fam"] * len(seqs), [f"f{i:04d}" for i in range(len(seqs))],
             [str(len(s)) for s in seqs], [seqmod.decode(s) for s in seqs]]
     lib = tmp_path / "wide.json"
     lib.write_text(json.dumps([Config().to_dict(), {
         "headers": ["reference_genome", "sequence_name", "nt_length", "sequence"], "columns": cols}]))
-    recs = [(f"r{i}", seqmod.decode(seqs[i * 7][50:150]), "I" * 100) for i in range(300)]
+    recs = [(f"r{i}", seqmod.decode(seqs[(i * 7) % len(seqs)][start : start + 100]), "I" * 100) for i in range(300)]
     write_fastq(str(tmp_path / "reads.fastq"), recs)
     want = tmp_path / "ref.tsv"
     assert ref_cli(["align", "--reference", str(lib), "--output", str(want),
-                    "--input", str(tmp_path / "reads.fastq")]) == 0
+                    "--input", str(tmp_path / "reads.fastq"), *flags]) == 0
     out = tmp_path / "out.tsv"
     res = subprocess.run(
         [sys.executable, "-c", SCRIPT, "align", "--reference", str(lib), "--output", str(out),
-         "--input", str(tmp_path / "reads.fastq"), "--device", "cpu"],
+         "--input", str(tmp_path / "reads.fastq"), *flags, "--device", "cpu"],
         cwd=REPO, capture_output=True, text=True, timeout=300,
     )
     assert res.returncode == 0, res.stderr[-3000:]
     assert "LOADED []" in res.stdout
     assert out.read_bytes() == want.read_bytes() and want.read_bytes().count(b"\n") > 100
+
+
+def test_wide_align_runs_without_jax(tmp_path):
+    """The gband path (band tables, sidecar, band_tree_expand, idlist wire)
+    imports no jax either, and its TSV equals the reference's."""
+    from tests.test_torch_gband import family_seqs
+
+    _wide_without_jax(tmp_path, family_seqs(), [])
+
+
+def test_wide_probe_mono_runs_without_jax(tmp_path):
+    """The unbanded monocls path (class-id tables, the runs-compacted
+    class-bits intersection) imports no jax either, and its TSV equals the
+    reference's."""
+    from tests.test_torch_gband import groupcls_seqs
+
+    _wide_without_jax(tmp_path, groupcls_seqs(), ["--probe", "mono"], start=480)
 
 
 def _imports(path: pathlib.Path):

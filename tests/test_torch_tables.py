@@ -1,6 +1,7 @@
 """The port's group-probe tables (nimble_tpu_torch/align/tables.py) against
 the reference's `_device_tables(index)` group entries, element for element.
-The mono and two-choice tables are held in tests/test_torch_mono.py."""
+The mono and two-choice tables are held in tests/test_torch_mono.py, the
+wide ones in tests/test_torch_gband.py and tests/test_torch_wide.py."""
 import pathlib
 
 import numpy as np
@@ -11,6 +12,7 @@ from nimble_tpu.align.engine import _device_tables
 from nimble_tpu.config import Config, Data, load_library
 from nimble_tpu_torch.align.tables import (
     GROUP_KEYS,
+    GROUPCLS_KEYS,
     build_group_tables,
     device_tables,
     table_words,
@@ -74,16 +76,20 @@ def test_tables_from_reference_carries_group_entries():
 
 def test_device_tables_refuse_what_the_group_path_cannot_take():
     """A mono index (no group entries) or group_ok=False gets the mono
-    table, as the reference's _device_tables gives it; a W > 16 library the
-    reference takes to its groupcls path (unbanded) raises, naming the
-    ROADMAP item."""
+    table, as the reference's _device_tables gives it; a W > 16 library
+    that cannot be banded gets the reference's groupcls tables, with its
+    class bitsets."""
     _, index = _golden_index()
     _, mono = _golden_index(group_g=0)
     cpu = torch.device("cpu")
     assert set(device_tables(mono, cpu)) == {"mono_bucket", "mono_stash"}
     assert set(device_tables(index, cpu, group_ok=False)) == {"mono_bucket", "mono_stash"}
     assert set(device_tables(index, cpu)) == set(GROUP_KEYS)
-    _, wide = _synthetic_index(n_seqs=600, length=60)
+    ref_wide, wide = _synthetic_index(n_seqs=600, length=60)
     assert wide.bitset_words > 16
-    with pytest.raises(NotImplementedError, match="groupcls.*Queue 1 item 10"):
-        device_tables(wide, cpu)
+    got = device_tables(wide, cpu)
+    want = tables_from_reference({k: np.asarray(v) for k, v in _device_tables(ref_wide).items()}, cpu)
+    assert set(got) == set(GROUPCLS_KEYS) | {"class_bits"} == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert table_words(got) == wide.bitset_words
