@@ -81,6 +81,22 @@ building and checking their kernels:
      the placement cap (tables.MONO_MAX_BYTES, what NIMBLE_TPU_MONO_MAX_BYTES
      sets at import) one byte under monocls's smallest table; 262,144
      reads, 16,384 reads cuda against cpu.
+ 18. the report (`report`, then `report --device` on the card): (a) the
+     tagged pairs' align TSV of phase 5, host against `--device` (and
+     `--device cpu`); (b) bench_data.write_report_tsv, 1,048,576 rows
+     (cut from 2,097,152; `python3 -m nimble_tpu_torch.report_bench`
+     runs any size) over HLA-100's names (10,000 cells, 1-16 reads a UMI, 10% off
+     reads), host exact, `--stream` and `--device` twice, each with its
+     wall and rows/s, and `--device`'s wall split by part from the run
+     log (TSV parse, extract_report_rows, rows_to_bitsets + factorize,
+     H2D, the pipeline in CUDA events with its fixpoint iterations, D2H,
+     decode + count + write); (c) 524,288 rows over the 20k library's
+     names (W = 625), host and `--device`, with the pipeline's time and
+     the peak device memory. Every `--device` output must equal the host
+     report byte for byte, or, where the tie guard counted near ties,
+     differ in at most 2 x near_ties count rows; the two `--device` runs
+     of (b) must give the same bytes and near_ties; `--stream` must equal
+     the host report.
 On 13-17 the engine `align` builds must take the named path (the run log's
 `engine` event), kmer_keys == its plain version at the arguments it passes
 for the first chunk of the reads, and that chunk's step is timed by stage
@@ -167,6 +183,11 @@ N_CLS_CMP = 16_384
 GCLS_FAMILIES = 5  # groupcls: 5,000 alleles written allele-major, W = 157
 BAND_FAMILIES = 4  # banded monocls: 4,000 alleles in family order, W = 125
 NO_GROUP = {"NIMBLE_TPU_NO_GROUP_PROBE": "1"}
+
+# the report phase (18): bench_data.write_report_tsv's workload, (b) cut
+# from 2,097,152 rows to keep the script inside its time
+N_REPORT_ROWS = 1_048_576
+N_REPORT_WIDE = 524_288
 
 
 def say(phase: str, msg: str) -> None:
@@ -455,7 +476,7 @@ def phase_main_path(work: str, name: str, lib: str, fq: str):
     if os.path.getsize(counts) == 0:
         raise AssertionError("report wrote an empty count matrix for barcoded pairs")
     say("main", f"report {time.perf_counter() - t0:.2f} s")
-    return bam, {k: se[k] + pe_counts[k] for k in se}
+    return bam, pout, {k: se[k] + pe_counts[k] for k in se}
 
 
 def phase_mono_data(work: str, lib: str):
@@ -1166,6 +1187,39 @@ def phase_cls_paths(work: str, wlib: str, wfq: str, wr1: str, wr2: str, wcmp: st
     return max(r[0] for r in results), [r[1] for r in results if r[1] is not None], counts
 
 
+def phase_report(work: str, pout: str):
+    """`report` on the host and `report --device` on the card
+    (nimble_tpu_torch/report_bench.py): (a) the tagged pairs' align TSV of
+    phase 5, also under `--device cpu`; (b) write_report_tsv's workload
+    over HLA-100's names, host exact, --stream and --device twice; (c) the
+    same generator over the 20k library's names (W = 625), host and
+    --device."""
+    from nimble_tpu_torch import bench_data
+    from nimble_tpu_torch import report_bench as RB
+
+    d = os.path.join(work, "report")
+    os.makedirs(d, exist_ok=True)
+
+    # (a) the chain as a user runs it
+    outs = {k: os.path.join(d, f"a_{k}.tsv") for k in ("host", "cuda", "cpu")}
+    wall_h, _, _ = RB.run_report(pout, outs["host"])
+    wall_d, _, ev = RB.run_report(pout, outs["cuda"], ["--device"])
+    RB.hold_to_host("(a) tagged pairs", outs["host"], outs["cuda"], ev["near_ties"])
+    _, _, ev_cpu = RB.run_report(pout, outs["cpu"], ["--device", "cpu"])
+    with open(outs["cuda"], "rb") as f, open(outs["cpu"], "rb") as g:
+        same = f.read() == g.read()
+    say("report", f"(a) {tsv_rows(pout)} rows of phase 5's tagged pairs: host {wall_h:.2f} s, --device "
+        f"{wall_d:.2f} s; --device cpu == cuda bytes: {same}, near_ties cuda {ev['near_ties']} "
+        f"cpu {ev_cpu['near_ties']}")
+
+    # (b) a realistic UMI workload; (c) full width, W = 625
+    RB.bench(d, N_REPORT_ROWS, bench_data.hla100_names(), RB.SEED, "(b)")
+    runs = RB.bench(d, N_REPORT_WIDE, bench_data.wide_names(), RB.SEED, "(c)",
+                    engines=RB.ENGINES[:1] + RB.ENGINES[2:3])
+    if runs["--device"][2]["words"] != 625:
+        raise AssertionError(f"(c): the bitsets are {runs['--device'][2]['words']} words wide, not 625")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA card",
@@ -1183,7 +1237,7 @@ def main() -> int:
         lib, fq = phase_data(work)
         kk_err, kk_ms, kk_plain, kk_bound = phase_kernel(lib, fq)
         phase_goldens(work)
-        bam, group_counts = phase_main_path(work, name, lib, fq)
+        bam, pout, group_counts = phase_main_path(work, name, lib, fq)
         nm1_lib, nm1_fq = phase_mono_data(work, lib)
         mp_err, mp_ms, mp_plain, mp_bound = phase_mono_kernel(lib, fq, nm1_lib, nm1_fq)
         mono_counts = phase_mono_main(work, lib, fq, bam, nm1_lib, nm1_fq)
@@ -1193,6 +1247,7 @@ def main() -> int:
         wide_counts = phase_wide_main(work, wlib, wfq, wr1, wr2)
         compare_devices("20k library, gband", wlib, wcmp)
         cls_err, cls_bands, cls_counts = phase_cls_paths(work, wlib, wfq, wr1, wr2, wcmp)
+        phase_report(work, pout)
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     # no single PyTorch call computes any of these functions: library_ms null
     # times and bounds at each kernel's main path; launches summed over

@@ -1,11 +1,13 @@
 """nimble_tpu_torch CLI — the same subcommand surface as nimble_tpu's.
 
 `align` runs the port on an explicit `--device` (cuda by default; cpu runs
-the plain torch twins). `generate`, `fastq-to-bam`, `report` (host engine),
-`plot`, `index` and `download` run the port's own copies of the reference's
-host modules; nothing here imports nimble_tpu.
-`report --device`, `report --distributed` and `index --warm` are not ported
-yet and exit non-zero naming their ROADMAP item.
+the plain torch twins). `report` runs the exact host engine, or with
+`--device [cuda|cpu]` the UMI pipeline as torch segment ops (bare
+`--device` is cuda, as the reference's flag runs on its accelerator).
+`generate`, `fastq-to-bam`, `plot`, `index` and `download` run the port's
+own copies of the reference's host modules; nothing here imports
+nimble_tpu. `report --distributed` and `index --warm` are not ported yet
+and exit non-zero naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -84,15 +86,19 @@ def main(argv=None) -> int:
     report_parser.add_argument("-s", "--summarize", help="CSV list of columns to summarize.", type=str, default=None)
     report_parser.add_argument("-t", "--threshold", type=float, default=0.05)
     report_parser.add_argument("--disable_thresholding", action="store_true", default=False)
-    report_parser.add_argument("--device", action="store_true", default=False,
-                               help="Not ported (ROADMAP Queue 1 item 7).")
+    report_parser.add_argument(
+        "--device", nargs="?", const="cuda", default=None, choices=DEVICES,
+        help="Run the UMI pipeline as torch segment ops (quant/device.py) "
+             "instead of the exact host path: on the card ('cuda', also the "
+             "bare flag; raises when no card is visible) or 'cpu'.",
+    )
     report_parser.add_argument("--distributed", type=int, default=0, metavar="N",
-                               help="Not ported (ROADMAP Queue 1 items 7-8).")
+                               help="Not ported (ROADMAP Queue 1 item 8).")
     report_parser.add_argument(
         "--stream", action="store_true", default=None,
         help="Run the exact host pipeline via bounded spill buckets "
              "(quant/stream.py). Default: auto above "
-             "NIMBLE_TPU_REPORT_STREAM_MB (4096).",
+             "NIMBLE_TPU_REPORT_STREAM_MB (4096); host engine only.",
     )
 
     plot_parser = subparsers.add_parser("plot")
@@ -156,9 +162,7 @@ def main(argv=None) -> int:
         )
     if args.subcommand == "report":
         if args.distributed > 0:
-            return _unported("report --distributed is ROADMAP Queue 1 items 7-8")
-        if args.device:
-            return _unported("report --device is ROADMAP Queue 1 item 7")
+            return _unported("report --distributed is ROADMAP Queue 1 item 8")
         from nimble_tpu_torch.report.tsv import report
 
         summarize_columns_list = args.summarize.split(",") if args.summarize else None
@@ -168,7 +172,9 @@ def main(argv=None) -> int:
             summarize_columns_list,
             args.threshold,
             args.disable_thresholding,
+            engine="host" if args.device is None else "device",
             stream=args.stream,
+            device=args.device or "cuda",
         )
         return 0
     if args.subcommand == "plot":

@@ -11,6 +11,9 @@ The 20k-allele HLA/KIR library (`write_wide`): scripts/bigindex.py's
 build_library with its seed and draws (20 families x 1,000 alleles x 3 kb,
 25 SNPs each: 20,000 features, W = 625 words), and reads and pairs drawn
 from it; or its first families alone, in family order or allele-major.
+
+The report workload (`write_report_tsv`): an align TSV as a 10x run's
+`align` writes it, over a library's feature names, for `report`.
 """
 from __future__ import annotations
 
@@ -49,6 +52,11 @@ def hla100_alleles(rng: np.random.Generator) -> np.ndarray:
     return np.stack(alleles)
 
 
+def hla100_names():
+    """The HLA-100 library's feature names, in library order."""
+    return [f"allele{i:03d}" for i in range(N_ALLELES)]
+
+
 def write_single(outdir, n_reads: int):
     """`hla100.json` and `reads_<n_reads>.fastq.gz` in outdir. Returns
     (library path, FASTQ path)."""
@@ -58,7 +66,7 @@ def write_single(outdir, n_reads: int):
     mat = hla100_alleles(rng)
     data = Data()
     for i, s in enumerate(mat):
-        for col, v in zip(data.columns, ("hla bench", f"allele{i:03d}", str(ALLELE_LEN), seqmod.decode(s))):
+        for col, v in zip(data.columns, ("hla bench", hla100_names()[i], str(ALLELE_LEN), seqmod.decode(s))):
             col.append(v)
     lib_path = outdir / "hla100.json"
     with open(lib_path, "w") as f:
@@ -129,6 +137,19 @@ WIDE_SNPS = 25
 WIDE_ERROR = 0.01
 
 
+def _wide_order(families: int, interleaved: bool):
+    """(family, allele) of each feature of a wide library, in library order."""
+    if interleaved:
+        return [(f, a) for a in range(WIDE_ALLELES) for f in range(families)]
+    return [(f, a) for f in range(families) for a in range(WIDE_ALLELES)]
+
+
+def wide_names(families: int = WIDE_FAMILIES, interleaved: bool = False):
+    """A wide library's feature names, in library order (the 20k library's
+    by default)."""
+    return [f"F{fam:02d}*{a:04d}" for fam, a in _wide_order(families, interleaved)]
+
+
 def wide_library(outdir, families: int = WIDE_FAMILIES, interleaved: bool = False):
     """scripts/bigindex.py:build_library's 20k-allele library, with its seed
     and draws (the alleles of scripts/make_big20k_cli.py too), written as
@@ -147,15 +168,12 @@ def wide_library(outdir, families: int = WIDE_FAMILIES, interleaved: bool = Fals
             pos = rng.integers(0, WIDE_LEN, size=WIDE_SNPS)
             s[pos] = rng.integers(0, 4, size=WIDE_SNPS).astype(np.int8)
             by_family[fam, a] = s
-    if interleaved:
-        order = [(f, a) for a in range(WIDE_ALLELES) for f in range(families)]
-    else:
-        order = [(f, a) for f in range(families) for a in range(WIDE_ALLELES)]
+    order = _wide_order(families, interleaved)
     data = Data()
     alleles = np.empty((len(order), WIDE_LEN), dtype=np.int8)
-    for i, (fam, a) in enumerate(order):
+    for i, ((fam, a), name) in enumerate(zip(order, wide_names(families, interleaved))):
         alleles[i] = by_family[fam, a]
-        for col, v in zip(data.columns, ("hla_kir_20k", f"F{fam:02d}*{a:04d}", str(WIDE_LEN),
+        for col, v in zip(data.columns, ("hla_kir_20k", name, str(WIDE_LEN),
                                          seqmod.decode(alleles[i]))):
             col.append(v)
     if families == WIDE_FAMILIES and not interleaved:
@@ -219,3 +237,74 @@ def write_wide(outdir, n_reads: int, n_pairs: int, families: int = WIDE_FAMILIES
             f1.write(_fastq_records(np.where(flip, tail, head), b"p", s0, b"/1"))
             f2.write(_fastq_records(np.where(flip, head, tail), b"p", s0, b"/2"))
     return lib, str(fq), str(r1), str(r2)
+
+
+# the report workload: a 10x run's align TSV
+REPORT_CELLS = 10_000
+REPORT_FAMILY = 10  # consecutive feature names form one family
+REPORT_MAX_READS = 16  # reads per UMI: min(geometric(1/4), 16), mean 3.96
+REPORT_OFF = 0.10  # share of reads that add or swap an allele
+REPORT_SCORES = (60, 150)
+
+
+def write_report_tsv(path, n_rows: int, feature_names, seed: int) -> dict:
+    """An align TSV (the port's TSV_HEADER, tagged r1/r2 CB and UB) of
+    n_rows reads, for `report`. Each UMI has 1-16 reads (mean ~4) in one of
+    REPORT_CELLS cells and a true set of 1-4 alleles of one family (blocks
+    of REPORT_FAMILY consecutive names of `feature_names`); a read carries
+    that set, except that REPORT_OFF of the reads add an allele of the
+    family or swap one, so thresholding drops features and some UMIs
+    intersect empty. Scores are integers 60-150. Rows come in random order.
+    Returns the counts {"umis", "cells"}."""
+    from nimble_tpu_torch.align.pipeline import TSV_HEADER
+
+    rng = np.random.default_rng(seed)
+    fam_n = len(feature_names) // REPORT_FAMILY
+    if fam_n == 0:
+        raise ValueError(f"need at least {REPORT_FAMILY} feature names")
+    per = np.minimum(rng.geometric(0.25, size=n_rows), REPORT_MAX_READS)
+    n_umi = int(np.searchsorted(np.cumsum(per), n_rows)) + 1
+    umi_of = np.repeat(np.arange(n_umi), per[:n_umi])[:n_rows]
+    cells = _LUT[rng.integers(0, 4, size=(REPORT_CELLS, CB_LEN))].view(f"S{CB_LEN}").ravel()
+    cell = rng.integers(0, REPORT_CELLS, size=n_umi)
+    umis = _LUT[rng.integers(0, 4, size=(n_umi, UMI_LEN))].view(f"S{UMI_LEN}").ravel()
+    fam = rng.integers(0, fam_n, size=n_umi)
+    size = rng.integers(1, 5, size=n_umi)
+    rank = np.argsort(np.argsort(rng.random((n_umi, REPORT_FAMILY)), axis=1), axis=1)
+    member = (rank < size[:, None])[umi_of]  # (n_rows, family) true sets
+
+    # off reads: add one allele of the family that is not in the set; half
+    # of them also drop one that is (a swap)
+    off = rng.random(n_rows) < REPORT_OFF
+    swap = off & (rng.random(n_rows) < 0.5)
+    keys = rng.random((n_rows, REPORT_FAMILY))
+    add = np.argmax(np.where(member, -1.0, keys), axis=1)
+    rem = np.argmax(np.where(member, keys, -1.0), axis=1)
+    rows = np.arange(n_rows)
+    member[rows[swap], rem[swap]] = False
+    member[rows[off], add[off]] = True
+
+    pattern = (member << np.arange(REPORT_FAMILY)).sum(axis=1)
+    code = fam[umi_of] * (1 << REPORT_FAMILY) + pattern
+    uniq, inverse = np.unique(code, return_inverse=True)
+    labels = []
+    for c in uniq.tolist():
+        base = (c >> REPORT_FAMILY) * REPORT_FAMILY
+        labels.append(",".join(feature_names[base + j] for j in range(REPORT_FAMILY) if c >> j & 1))
+    score = rng.integers(REPORT_SCORES[0], REPORT_SCORES[1] + 1, size=n_rows)
+    pos = rng.integers(0, ALLELE_LEN - READ_LEN, size=n_rows)
+    order = rng.permutation(n_rows)
+
+    block = 1 << 17
+    with open(path, "w") as f:
+        f.write("\t".join(TSV_HEADER) + "\n")
+        for s0 in range(0, n_rows, block):
+            idx = order[s0:s0 + block]
+            lab = [labels[i] for i in inverse[idx].tolist()]
+            cb = cells[cell[umi_of[idx]]].astype(str).tolist()
+            ub = umis[umi_of[idx]].astype(str).tolist()
+            f.write("".join(
+                f"{a}\t{sc}\t{c}\t{u}\t{c}\t{u}\t{p}\t{p + 220}\t{sc}\t0\t\n"
+                for a, sc, c, u, p in zip(lab, score[idx].tolist(), cb, ub, pos[idx].tolist())
+            ))
+    return {"umis": n_umi, "cells": int(np.unique(cell).size)}

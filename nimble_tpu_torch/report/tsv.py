@@ -169,48 +169,76 @@ def report(
     summarize_columns_list: Optional[Sequence[str]] = None,
     threshold: float = 0.05,
     disable_thresholding: bool = False,
+    engine: str = "host",
     stream: Optional[bool] = None,
+    device="cuda",
 ) -> None:
-    """The `report` subcommand (reference: __main__.py:254-297), on the
-    exact float64 host pipeline (the bit-exactness oracle). The reference
-    package's device and distributed engines are not ported yet (ROADMAP
-    Queue 1 items 7-8); the CLI refuses them.
+    """The `report` subcommand (reference: __main__.py:254-297).
 
-    stream: run the host path via bounded spill buckets (quant/stream.py)
-    so inputs larger than RAM work, bit-identically. None = auto: stream
-    when the input exceeds NIMBLE_TPU_REPORT_STREAM_MB (default 4096)."""
-    if stream is None:
-        cap_mb = int(os.environ.get("NIMBLE_TPU_REPORT_STREAM_MB", "4096"))
-        stream = (
-            os.path.exists(input)
-            and os.path.getsize(input) > cap_mb << 20
-        )
-    if stream:
-        from nimble_tpu_torch.quant.stream import stream_report
+    engine selects the UMI pipeline: "host" is the exact float64 path (the
+    bit-exactness oracle); "device" runs it as torch segment ops on
+    `device` (quant/device.py: 'cuda' by default, which raises without a
+    card, or 'cpu'). The reference's "distributed" engine is not ported
+    (ROADMAP Queue 1 item 8) and raises.
 
-        stream_report(
-            input,
-            output,
-            summarize_columns_list,
-            threshold,
-            disable_thresholding,
-        )
-        return
-    cols = read_alignment_tsv(input)
+    stream (host engine only): run the host path via bounded spill buckets
+    (quant/stream.py) so inputs larger than RAM work, bit-identically.
+    None = auto: stream when the input exceeds NIMBLE_TPU_REPORT_STREAM_MB
+    (default 4096).
+
+    Each part's wall goes to the run log (NIMBLE_TPU_RUNLOG)."""
+    if engine == "distributed":
+        raise NotImplementedError("report --distributed is not ported (ROADMAP Queue 1 item 8)")
+    if engine not in ("host", "device"):
+        raise ValueError(f"engine must be 'host' or 'device', got {engine!r}")
+    if engine == "device":
+        from nimble_tpu_torch.device import resolve_device
+
+        device = resolve_device(device) if isinstance(device, str) else device
+    else:
+        if stream is None:
+            cap_mb = int(os.environ.get("NIMBLE_TPU_REPORT_STREAM_MB", "4096"))
+            stream = (
+                os.path.exists(input)
+                and os.path.getsize(input) > cap_mb << 20
+            )
+        if stream:
+            from nimble_tpu_torch.quant.stream import stream_report
+
+            stream_report(
+                input,
+                output,
+                summarize_columns_list,
+                threshold,
+                disable_thresholding,
+            )
+            return
+    from nimble_tpu_torch.observability import runlog
+
+    log = runlog()
+    with log.stage("report_parse"):
+        cols = read_alignment_tsv(input)
     if cols is None:
         write_empty_counts(output)
         return
 
-    rows = extract_report_rows(cols)
+    with log.stage("report_extract"):
+        rows = extract_report_rows(cols)
     if not rows:
         write_empty_counts(output)
         return
 
-    from nimble_tpu_torch.quant.exact import report_rows
+    if engine == "device":
+        from nimble_tpu_torch.quant.device import report_device_rows
 
-    counts, dropped = report_rows(rows, threshold, disable_thresholding)
+        counts, dropped = report_device_rows(rows, threshold, disable_thresholding, device=device)
+    else:
+        from nimble_tpu_torch.quant.exact import report_rows
+
+        counts, dropped = report_rows(rows, threshold, disable_thresholding)
     print(f"Dropped {dropped} UMIs due to empty intersections")
-    write_counts(output, counts)
+    with log.stage("report_write"):
+        write_counts(output, counts)
 
     if summarize_columns_list:
         # The reference prepends the literal prefix to the whole output path

@@ -94,16 +94,58 @@ def test_align_refuses_unported_options(args, item, staging, capsys):
     assert not (staging / "refused.tsv").exists()
 
 
-@pytest.mark.parametrize(
-    "args, item",
-    [(["report", "-i", "x.tsv", "-o", "y.tsv", "--device"], "ROADMAP Queue 1 item 7"),
-     (["report", "-i", "x.tsv", "-o", "y.tsv", "--distributed", "2"], "ROADMAP Queue 1 items 7-8"),
-     (["index", "--reference", "lib.json", "--warm"], "ROADMAP Queue 1 item 5")],
-    ids=["report-device", "report-distributed", "index-warm"],
-)
-def test_unported_subcommand_options_exit_nonzero(args, item, capsys):
+def tagged_tsv(path):
+    """golden_base.tsv (an align TSV as the port writes it) with CB/UB
+    grafted on, so that reads share UMIs (4 cells, 7 UMIs), as in
+    tests/test_mesh_cli.py's report test."""
+    lines = (GOLD / "golden_base.tsv").read_text().strip().split("\n")
+    header = lines[0].split("\t")
+    icb, iub = header.index("r1_CB"), header.index("r1_UB")
+    rows = []
+    for i, line in enumerate(lines[1:]):
+        parts = line.split("\t")
+        parts[icb], parts[iub] = f"CELL{i % 4}", f"UMI{i % 7}"
+        rows.append("\t".join(parts))
+    path.write_text("\n".join([lines[0]] + rows) + "\n")
+    return str(path)
+
+
+REFUSED = {
+    "report-distributed": (["report", "-i", "x.tsv", "-o", "y.tsv", "--distributed", "2"], "ROADMAP Queue 1 item 8"),
+    "index-warm": (["index", "--reference", "lib.json", "--warm"], "ROADMAP Queue 1 item 5"),
+}
+
+
+@pytest.mark.parametrize("case", ["report-device", "report-distributed", "index-warm"])
+def test_unported_subcommand_options_exit_nonzero(case, capsys, tmp_path):
+    """`report --distributed` and `index --warm` are refused by name.
+    `report --device` is ported: the port's `report --device cpu` gives
+    the bytes of the reference CLI's `report --device` and of the host
+    report on a tagged TSV with shared UMIs."""
+    if case == "report-device":
+        from nimble_tpu.__main__ import main as ref_cli
+
+        tagged = tagged_tsv(tmp_path / "tagged.tsv")
+        outs = {k: tmp_path / f"{k}.tsv" for k in ("host", "dev", "ref")}
+        assert cli(["report", "-i", tagged, "-o", str(outs["host"])]) == 0
+        assert cli(["report", "-i", tagged, "-o", str(outs["dev"]), "--device", "cpu"]) == 0
+        assert ref_cli(["report", "-i", tagged, "-o", str(outs["ref"]), "--device"]) == 0
+        host = outs["host"].read_bytes()
+        assert host and outs["dev"].read_bytes() == outs["ref"].read_bytes() == host
+        return
+    args, item = REFUSED[case]
     assert cli(args) == 2
     assert item in capsys.readouterr().err
+
+
+def test_report_device_on_cuda_without_a_card_raises(tmp_path, monkeypatch):
+    """Bare `report --device` means the card, as the reference's flag means
+    its accelerator; with no card it raises, naming `--device cpu`."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "nocard.tsv"
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli(["report", "-i", tagged_tsv(tmp_path / "tagged.tsv"), "-o", str(out), "--device"])
+    assert not out.exists()
 
 
 def test_align_on_cuda_without_a_card_raises(staging, monkeypatch):

@@ -96,6 +96,25 @@ def test_wide_probe_mono_runs_without_jax(tmp_path):
     _wide_without_jax(tmp_path, groupcls_seqs(), ["--probe", "mono"], start=480)
 
 
+def test_report_device_cpu_runs_without_jax(tmp_path):
+    """`report --device cpu` (quant/device.py) imports no jax either, and
+    its counts equal the port's host report."""
+    from tests.test_torch_goldens import tagged_tsv
+
+    from nimble_tpu_torch.__main__ import main as port_cli
+
+    tagged = tagged_tsv(tmp_path / "tagged.tsv")
+    out, host = tmp_path / "dev.tsv", tmp_path / "host.tsv"
+    res = subprocess.run(
+        [sys.executable, "-c", SCRIPT, "report", "-i", tagged, "-o", str(out), "--device", "cpu"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "LOADED []" in res.stdout
+    assert port_cli(["report", "-i", tagged, "-o", str(host)]) == 0
+    assert out.read_bytes() == host.read_bytes() and out.stat().st_size > 0
+
+
 def _imports(path: pathlib.Path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
