@@ -5,8 +5,9 @@ Drives every align path of the port — `align` on the default group probe
 and on the mono probe (`--probe mono`, `num_mismatches` 1) against narrow
 libraries; on the wide banded group path (gband) against the 20k-allele
 HLA/KIR library; and on the other wide paths (monocls with class bands or
-class bits, groupcls, the wide two-choice probe) — on one CUDA card, after
-building and checking their kernels:
+class bits, groupcls, the wide two-choice probe); and three libraries at
+once through the stacked engine — on one CUDA card, after building and
+checking their kernels:
 
   1. device: card, power limit, torch/CUDA versions; the native host IO
      library (native/), built with the first compiler that can
@@ -97,6 +98,26 @@ building and checking their kernels:
      differ in at most 2 x near_ties count rows; the two `--device` runs
      of (b) must give the same bytes and near_ties; `--stream` must equal
      the host report.
+ 19. the stacked engine (align/stacked.py: one merged probe answers every
+     library) on bench_data.write_stacked's workload, scripts/stackscale.py's
+     three libraries with 100 alleles each (W_cat = 12, k = 21): (a) the
+     stacked engine `align` builds on the group stack and on the mono stack
+     (`--probe mono`), kmer_keys (both) and mono_probe (the mono stack, S =
+     2, W = 12) == their plain versions exactly at the arguments the engine
+     passes them for the first chunk of the reads, timed; mono_probe at
+     S = 2 on the stack's table with its stash filled to 64 rows and on
+     synthetic tables at W = 12, 47 and 64 with a full 64-row stash (33 KB
+     of shared memory at W = 64), timed; one stacked step by stage (window,
+     merged probe, the three libraries' tails, pack;
+     kernel_bench.stacked_stages); (b) 524,288 single-end reads through
+     `align` stacked (NIMBLE_TPU_STACK=1) and by default (one engine per
+     library, each on the group path), every library's TSV byte-identical,
+     both walls; (c) the same under `--probe mono` (the separate engines on
+     the mono path); (d) 131,072 10x-shaped pairs through fastq-to-bam ->
+     stacked and separate `align` (byte-identical) -> `report`; (e)
+     16,384 reads on cuda against cpu on both stacks, byte-identical. Each
+     run must take its path (stacked, or one engine per library on the
+     unstacked path) and launch its kernels.
 On 13-17 the engine `align` builds must take the named path (the run log's
 `engine` event), kmer_keys == its plain version at the arguments it passes
 for the first chunk of the reads, and that chunk's step is timed by stage
@@ -188,6 +209,17 @@ NO_GROUP = {"NIMBLE_TPU_NO_GROUP_PROBE": "1"}
 # from 2,097,152 rows to keep the script inside its time
 N_REPORT_ROWS = 1_048_576
 N_REPORT_WIDE = 524_288
+
+# the stacked engine (phase 19): bench_data.write_stacked's three libraries
+N_STACK_READS = 524_288
+N_STACK_PAIRS = 131_072
+N_STACK_CMP = 16_384
+# mono_probe at S = 2 on synthetic tables: these W (W_cat of the workload,
+# of a W = 47 library beside narrow ones, STACK_MAX_WORDS), at the main
+# path's P
+STACK_SYNTH_W = (12, 47, 64)
+STACK_SYNTH_B = 8_192
+STACK_SYNTH_P = 92
 
 
 def say(phase: str, msg: str) -> None:
@@ -409,7 +441,7 @@ def phase_goldens(work: str):
 def drive(label: str, args, n: int, kernels, lo: float = 0.3, path: str = ""):
     """One main-path run: zero every kernel's launch count, run `align` on
     cuda, read the counts. Fails unless each kernel of the path launched,
-    the engine took `path` (when given; the run log's `engine` event) and
+    every engine took `path` (when given; the run log's `engine` events) and
     the pass rate (TSV rows per read or pair) lies in (lo, 1]. Returns
     (wall s, rows, counts)."""
     from nimble_tpu_torch.align import kernels as K
@@ -430,14 +462,15 @@ def drive(label: str, args, n: int, kernels, lo: float = 0.3, path: str = ""):
         stages = [json.loads(ln) for ln in f if ln.strip()]
     setup = {e["stage"]: e["wall_s"] for e in stages if e["event"] == "stage_end"}
     t_setup = setup.get("index_build", 0.0) + setup.get("engine_build", 0.0)
-    engine = [e for e in stages if e["event"] == "engine"][-1]
-    if path and engine["path"] != path:
-        raise AssertionError(f"{label}: the engine took the {engine['path']} path, not {path}")
+    engines = [e for e in stages if e["event"] == "engine"]
+    engine = engines[-1]
+    if path and any(e["path"] != path for e in engines):
+        raise AssertionError(f"{label}: the engines took the {[e['path'] for e in engines]} paths, not {path}")
     counts = {name: w.launches for name, w in wrappers.items()}
     for name in kernels:
         if counts[name] <= 0:
             raise AssertionError(f"{label}: the path never launched the {name} kernel")
-    rows = tsv_rows(out)
+    rows = sum(tsv_rows(o) for o in lib_outputs(out, args[args.index("--reference") + 1]))
     if not lo < rows / n <= 1.0:
         raise AssertionError(f"{label}: pass rate {rows / n:.4f} outside ({lo}, 1]")
     relay = "".join(f", of it the {what} re-lay {setup[stage]:.4f}" for stage, what in
@@ -445,10 +478,34 @@ def drive(label: str, args, n: int, kernels, lo: float = 0.3, path: str = ""):
                      ("class_relayout", "class bands'")) if stage in setup)
     say("main", f"{label}: {n} in {wall:.2f} s wall, {n / wall:,.0f}/s, pass rate {rows / n:.4f}, "
         f"launches {counts}; path {engine['path']}, chunk {engine['chunk_size']}, tables "
-        f"{engine['table_bytes'] / 1e9:.3f} GB; set-up {t_setup:.2f} s (index load "
+        f"{sum(e['table_bytes'] for e in engines) / 1e9:.3f} GB over {len(engines)} engine(s); set-up {t_setup:.2f} s (index load "
         f"{setup.get('index_build', 0.0):.2f}, engine build {setup.get('engine_build', 0.0):.2f}{relay}), "
         f"after it {n / max(wall - t_setup, 1e-9):,.0f}/s")
     return wall, rows, counts
+
+
+def lib_outputs(out: str, reference: str):
+    """The TSVs `align --output out --reference reference` writes: `out`
+    for one library, one `out` with `.<library>` before its extension for
+    each of several."""
+    from nimble_tpu_torch.align.pipeline import append_path_string
+
+    libs = reference.split(",")
+    if len(libs) == 1:
+        return [out]
+    return [append_path_string(out, "." + os.path.splitext(os.path.basename(lib))[0]) for lib in libs]
+
+
+def same_bytes(label: str, a: str, b: str, reference: str) -> int:
+    """Every library's TSV of run a equals run b's, byte for byte. Returns
+    the rows they hold."""
+    rows = 0
+    for x, y in zip(lib_outputs(a, reference), lib_outputs(b, reference)):
+        with open(x, "rb") as f, open(y, "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError(f"{label}: {os.path.basename(x)} differs from {os.path.basename(y)}")
+        rows += tsv_rows(x)
+    return rows
 
 
 def phase_main_path(work: str, name: str, lib: str, fq: str):
@@ -973,19 +1030,28 @@ def phase_wide_main(work: str, lib: str, fq: str, r1: str, r2: str):
     return {k: sum(r[2][k] for r in runs) for k in WIDE_KERNELS}
 
 
-def compare_devices(label: str, lib: str, fq: str, flags=(), n: int = N_WIDE_CMP):
+def compare_devices(label: str, lib: str, fq: str, flags=(), n: int = N_WIDE_CMP, path: str = ""):
     """The same reads through `align --device cuda` and `--device cpu`:
-    the TSVs must be byte-identical."""
+    the TSVs must be byte-identical, and every engine of both runs must
+    take `path` when it is given (the run log's `engine` events)."""
     outs = {}
+    log = os.environ["NIMBLE_TPU_RUNLOG"]
     for dev in ("cuda", "cpu"):
-        outs[dev] = f"{os.path.splitext(lib)[0]}.cmp_{re.sub(r'[^A-Za-z0-9]+', '_', label)}_{dev}.tsv"
+        base = os.path.splitext(lib.split(",")[0])[0]
+        outs[dev] = f"{base}.cmp_{re.sub(r'[^A-Za-z0-9]+', '_', label)}_{dev}.tsv"
+        seen = os.path.getsize(log) if os.path.exists(log) else 0
         t0 = time.perf_counter()
         cli(["align", "--reference", lib, "--output", outs[dev], "--input", fq, *flags, "--device", dev])
         say("cmp", f"align ({label}) --device {dev}: {time.perf_counter() - t0:.2f} s")
-    with open(outs["cuda"], "rb") as a, open(outs["cpu"], "rb") as b:
-        if a.read() != b.read():
-            raise AssertionError(f"align ({label}): --device cuda and --device cpu TSVs differ")
-    say("cmp", f"{n} reads, {label}: cuda and cpu TSVs byte-identical ({tsv_rows(outs['cuda'])} rows)")
+        if not path:
+            continue
+        with open(log) as f:
+            f.seek(seen)
+            paths = [e["path"] for e in map(json.loads, filter(str.strip, f)) if e["event"] == "engine"]
+        if not paths or any(p != path for p in paths):
+            raise AssertionError(f"align ({label}) --device {dev}: the engines took the {paths} paths, not {path}")
+    rows = same_bytes(f"align ({label}), --device cuda against --device cpu", outs["cuda"], outs["cpu"], lib)
+    say("cmp", f"{n} reads, {label}: cuda and cpu TSVs byte-identical ({rows} rows)")
 
 
 def gz_head(src: str, dst: str, n: int) -> str:
@@ -1220,6 +1286,137 @@ def phase_report(work: str, pout: str):
         raise AssertionError(f"(c): the bitsets are {runs['--device'][2]['words']} words wide, not 625")
 
 
+def phase_stacked_data(work: str):
+    """The stacked workload (bench_data.write_stacked): three libraries of
+    100 alleles, N_STACK_READS single-end reads round-robin from them, their
+    first N_STACK_CMP, N_STACK_PAIRS 10x-shaped pairs as a tagged BAM; each
+    library's index for the group probe and for `--probe mono`."""
+    from nimble_tpu_torch import bench_data
+
+    d = os.path.join(work, "stacked")
+    t0 = time.perf_counter()
+    libs, fq, (r1, r2, whitelist) = bench_data.write_stacked(d, N_STACK_READS, N_STACK_PAIRS)
+    cmp_fq = gz_head(fq, os.path.join(d, f"stacked_cmp_{N_STACK_CMP}.fastq.gz"), N_STACK_CMP)
+    say("stacked", f"generated {len(libs)} libraries x {bench_data.N_ALLELES} alleles, {N_STACK_READS} reads and "
+        f"{N_STACK_PAIRS} pairs in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    bam = os.path.join(d, "tagged.bam")
+    cores = str(os.cpu_count() or 1)
+    cli(["fastq-to-bam", "--r1-fastq", r1, "--r2-fastq", r2, "--map", whitelist, "--output", bam, "-c", cores])
+    say("stacked", f"fastq-to-bam {N_STACK_PAIRS} pairs: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    for lib in libs:
+        cli(["index", "--reference", lib])
+        cli(["index", "--reference", lib, *MONO])
+    say("stacked", f"group and mono indexes of the {len(libs)} libraries built in {time.perf_counter() - t0:.2f} s")
+    return ",".join(libs), fq, cmp_fq, bam
+
+
+def phase_stacked_kernels(ref: str, fq: str):
+    """Phase 19 (a): the stacked engine that `align` builds on each stack;
+    kmer_keys (both stacks) and mono_probe (the mono stack, S = 2, W =
+    W_cat) against their plain versions at the arguments the engine passes
+    them for the first chunk of the reads, timed; mono_probe at S = 2 on
+    synthetic tables at W in STACK_SYNTH_W with a full 64-row stash, and on
+    the stack's own table with its stash filled to 64 rows; one stacked
+    step by stage (kernel_bench.stacked_stages). Returns the max |diff|."""
+    from nimble_tpu_torch import kernel_bench as KB
+    from nimble_tpu_torch.align import kernels as K
+
+    libs = ref.split(",")
+    errs = []
+    for probe, group_g in (("group", None), ("mono", 0)):
+        eng = KB.stacked_engine(libs, group_g)
+        want = f"stacked-{probe}"
+        if eng.path != want:
+            raise AssertionError(f"the stacked engine took {eng.path}, not {want}")
+        W = int(eng.seg_words[-1])
+        say("stacked", f"{want} engine: seg_words {eng.seg_words}, chunk {eng.chunk_size}, tables "
+            f"{eng.table_bytes / 1e6:.1f} MB ({', '.join(f'{k} {tuple(v.shape)}' for k, v in eng.tables.items())})")
+        codes, lens = KB.fastq_head(fq, eng.chunk_size, eng.max_len)
+        kargs = KB.captured(eng, codes, lens, "kmer_keys")
+        errs.append(check_kmer(f"{want} (the first chunk)", *kargs))
+        ms = KB.device_ms(lambda: K.kmer_keys(*kargs))
+        plain = cuda_ms(lambda: K.kmer_keys_reference(*kargs))
+        bound = KB.bound_ms(KB.kernel_bytes("kmer_keys", kargs))
+        say("stacked", f"kmer_keys B={kargs[0].shape[0]} L={kargs[0].shape[1]} k={kargs[2]} n_buckets={kargs[3]} "
+            f"({want}'s first chunk): all 7 planes equal the plain version; kernel {ms:.4f} ms on the card "
+            f"(CUDA graph, median of 25), bound {bound:.4f} ms, share {bound / ms:.3f}; plain {plain:.4f} ms")
+        if probe == "mono":
+            margs = KB.captured(eng, codes, lens, "mono_probe")
+            bucket, stash = margs[0], margs[7]
+            planes, err = check_mono(f"{want} (the first chunk)", bucket, stash, W, planes=margs[1:7])
+            errs.append(err)
+            time_mono(f"{want}, S=2 W={W} (the first chunk)", margs)
+            full_bucket, full_stash = _full_stash(bucket, stash, planes, W)
+            if full_stash.shape[0] != K.MONO_MAX_STASH:
+                raise AssertionError(f"the stacked full-stash table holds {full_stash.shape[0]} stash rows")
+            errs.append(check_mono(f"{want} with its stash filled to 64 rows", full_bucket, full_stash, W,
+                                   planes=planes)[1])
+            for sW in STACK_SYNTH_W:
+                sb, ss, sp = synthetic_planes(STACK_SYNTH_B, STACK_SYNTH_P, sW, 2, K.MONO_MAX_STASH, seed=sW)
+                errs.append(check_mono(f"synthetic, S=2 W={sW}, full stash", sb, ss, sW, planes=sp)[1])
+                time_mono(f"synthetic, S=2 W={sW}, full 64-row stash", (sb, *sp, ss, sW))
+            del full_bucket, full_stash
+        dev = torch.device("cuda")
+        c, ln = torch.from_numpy(codes).to(dev), torch.from_numpy(lens).to(dev)
+        st = KB.stage_ms(KB.stacked_stages(eng, c, ln))
+        total = sum(v for k, v in st.items() if k != "step")
+        say("stacked", f"{want}, one step by stage, B={c.shape[0]} L={c.shape[1]}, {len(libs)} libraries "
+            "(CUDA events, the card idle before each stage, median of 5): "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in st.items())
+            + f"; the merged probe is {st['merged probe'] / total:.3f} and the tails "
+            f"{st['tails'] / total:.3f} of the stages' sum")
+        del eng
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
+def phase_stacked(work: str, ref: str, fq: str, cmp_fq: str, bam: str):
+    """Phase 19 (b)-(e): the stacked engine through `align` on cuda
+    (NIMBLE_TPU_STACK=1), each run against the same run by default (one
+    unstacked engine per library, each on the path named beside the
+    stacked one), every library's TSV byte for byte: (b) the group stack on the
+    single-end reads, (c) the mono stack (`--probe mono`), (d) the 10x
+    pairs' tagged BAM, then `report` of each library; (e) N_STACK_CMP reads
+    on cuda against cpu on both stacks. Returns the summed launch counts of
+    the stacked runs."""
+    cores = str(os.cpu_count() or 1)
+    base = os.path.join(work, "stacked")
+    counts = []
+    for tag, inputs, n, flags, paths, kernels in (
+            ("(b) single-end reads", [fq], N_STACK_READS, [], ("stacked-group", "group"), ["kmer_keys"]),
+            ("(c) single-end reads, --probe mono", [fq], N_STACK_READS, MONO, ("stacked-mono", "mono"),
+             ["kmer_keys", "mono_probe"]),
+            ("(d) 10x pairs (tagged BAM)", [bam], N_STACK_PAIRS, [], ("stacked-group", "group"), ["kmer_keys"])):
+        name = re.sub(r"[^a-z0-9]+", "_", tag.lower()).strip("_")
+        outs = {}
+        walls = {}
+        for mode, path in zip(("stacked", "separate"), paths):
+            outs[mode] = os.path.join(base, f"{name}.{mode}.tsv")
+            args = ["--reference", ref, "--output", outs[mode], "--input", *inputs, "-c", cores, *flags]
+            with environ({"NIMBLE_TPU_STACK": "1" if mode == "stacked" else ""}):
+                wall, _, c = drive(f"{tag}, {mode}", args, n, kernels, path=path)
+            walls[mode] = wall
+            if mode == "stacked":
+                counts.append(c)
+        rows = same_bytes(f"{tag}: stacked against separate", outs["stacked"], outs["separate"], ref)
+        say("stacked", f"{tag}: every library's TSV stacked == separate ({rows} rows); wall stacked "
+            f"{walls['stacked']:.2f} s, separate {walls['separate']:.2f} s ({walls['separate'] / walls['stacked']:.2f}x)")
+        if tag.startswith("(d)"):
+            t0 = time.perf_counter()
+            for out in lib_outputs(outs["stacked"], ref):
+                counts_tsv = out + ".counts"
+                cli(["report", "-i", out, "-o", counts_tsv])
+                if os.path.getsize(counts_tsv) == 0:
+                    raise AssertionError(f"report wrote an empty count matrix for {os.path.basename(out)}")
+            say("stacked", f"(d) report of each library's TSV: {time.perf_counter() - t0:.2f} s")
+    with environ({"NIMBLE_TPU_STACK": "1"}):
+        for flags, label in (([], "stacked-group"), (MONO, "stacked-mono")):
+            compare_devices(f"(e) {label}", ref, cmp_fq, flags, N_STACK_CMP, path=label)
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA card",
@@ -1248,16 +1445,19 @@ def main() -> int:
         compare_devices("20k library, gband", wlib, wcmp)
         cls_err, cls_bands, cls_counts = phase_cls_paths(work, wlib, wfq, wr1, wr2, wcmp)
         phase_report(work, pout)
+        sref, sfq, scmp, sbam = phase_stacked_data(work)
+        st_err = phase_stacked_kernels(sref, sfq)
+        stacked_counts = phase_stacked(work, sref, sfq, scmp, sbam)
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     # no single PyTorch call computes any of these functions: library_ms null
     # times and bounds at each kernel's main path; launches summed over
     # every path's runs, errors over every check
-    runs = (group_counts, mono_counts, wide_counts, cls_counts)
+    runs = (group_counts, mono_counts, wide_counts, cls_counts, stacked_counts)
     kernels = [
         ("kmer_keys", "nimble_tpu/align/kernels.py:157", sum(c["kmer_keys"] for c in runs),
-         max(kk_err, cls_err), kk_ms, kk_plain, kk_bound),
-        ("mono_probe", "nimble_tpu/align/kernels.py:273", mono_counts["mono_probe"],
-         mp_err, mp_ms, mp_plain, mp_bound),
+         max(kk_err, cls_err, st_err), kk_ms, kk_plain, kk_bound),
+        ("mono_probe", "nimble_tpu/align/kernels.py:273", mono_counts["mono_probe"] + stacked_counts["mono_probe"],
+         max(mp_err, st_err), mp_ms, mp_plain, mp_bound),
         ("band_tree_expand", "nimble_tpu/align/kernels.py:394",
          wide_counts["band_tree_expand"] + cls_counts["band_tree_expand"],
          max(bt_err, *(b[0] for b in cls_bands)), bt_ms, bt_plain, bt_bound),

@@ -19,7 +19,9 @@ group probe (g = 6, W <= 8) and on the mono probe (`--probe mono`,
 `num_mismatches` 1-2, `kmer_stride > 1`, 8 < W <= 16, reads shorter than
 k+g-1), with the two-choice inline probe as the mono path's fallback; and
 on wide libraries (W > 16) that can be banded, on the banded group path
-(gband). Three hand-written CUDA kernels run on the card — the window stage
+(gband), and the other wide paths (groupcls, monocls, the wide two-choice
+probe); several libraries at once through the stacked engine (one merged
+probe answers every library). Three hand-written CUDA kernels run on the card — the window stage
 (csrc/kmer_keys.cu), the fused mono probe (csrc/mono_probe.cu) and the
 gband band-row intersection (csrc/band_tree_expand.cu) — and their plain
 torch versions on the CPU.
@@ -39,6 +41,7 @@ Modules (named after their reference counterparts):
                                      band_tree_expand: CUDA kernels + plain
                                      torch versions
   nimble_tpu_torch.align.engine    — the align steps, output wires, engine
+  nimble_tpu_torch.align.stacked   — the stacked multi-library engine
   nimble_tpu_torch.align.host_probe— host mono repair for short reads
   nimble_tpu_torch.align.pipeline  — the `align` orchestration
 """

@@ -170,6 +170,13 @@ def auto_chunk_size(index: KmerIndex, max_len: int, paired: bool,
         bands = build_class_bands(index)
         blk = RUN_BLOCK * ((1 + 4 * bands[0]) if bands is not None else W)
         per_read = P * 4 * MONO_SLOTS + 12 * P + blk
+    return chunk_from_per_read(per_read, paired, device)
+
+
+def chunk_from_per_read(per_read: int, paired: bool, device: torch.device) -> int:
+    """engine.py:_chunk_from_per_read — the largest power-of-two chunk whose
+    `per_read` int32 words of transients a read (each mate) fit
+    AUTO_CHUNK_BUDGET; on the CPU at most CPU_CHUNK_MAX."""
     bytes_per_read = per_read * 4 * (2 if paired else 1)
     chunk = 1 << int(np.log2(max(AUTO_CHUNK_BUDGET // max(bytes_per_read, 1), 1)))
     if device.type == "cpu":
@@ -955,7 +962,97 @@ def combine_mates(p: AlignParams, r1_lens, m1, r2_lens=None, m2=None):
     }
 
 
-class AlignEngine:
+class ChunkDispatch:
+    """The chunked dispatch that AlignEngine and the stacked engine share
+    (engine.py:AlignEngine's `_pad`, align_batch_async and
+    align_packed_async): a host batch is cut into fixed-shape chunks of
+    `chunk_size` reads, padded with N codes and zero lengths, moved to
+    `device` and handed to the engine's `_step(r1_codes, r1_lens[, r2_codes,
+    r2_lens])`, which returns (flat tensor, wire tag). A packed-wire batch
+    (io.packing.pack_batch) is unpacked on the device with its dense N
+    flags. Each pending entry is (flat tensor, wire tag, valid rows)."""
+
+    device: torch.device
+    chunk_size: int
+    max_len: int
+    paired: bool
+    tables: dict
+
+    @property
+    def table_bytes(self) -> int:
+        """Bytes of the tables on the engine's device."""
+        return sum(t.numel() * t.element_size() for t in self.tables.values() if isinstance(t, torch.Tensor))
+
+    def _check_max_len(self) -> None:
+        if self.max_len > MAX_LEN_LIMIT:
+            raise ValueError(f"max_len {self.max_len} > {MAX_LEN_LIMIT} (packed uint16 scores)")
+
+    def _pad(self, arr, n, fill):
+        if arr.shape[0] == n:
+            return arr
+        pad_width = [(0, n - arr.shape[0])] + [(0, 0)] * (arr.ndim - 1)
+        return np.pad(arr, pad_width, constant_values=fill)
+
+    def _to_dev(self, a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device).to(dtype)
+
+    def align_batch_async(self, r1_codes: np.ndarray, r1_lens: np.ndarray,
+                          r2_codes: Optional[np.ndarray] = None,
+                          r2_lens: Optional[np.ndarray] = None):
+        """Dispatch a host batch of int8 codes chunk by chunk (no wait).
+        Returns [(flat device tensor, wire tag, valid rows)] for
+        collect_async."""
+        n = r1_codes.shape[0]
+        C = self.chunk_size
+        pending = []
+        for start in range(0, n, C):
+            end = min(start + C, n)
+            args = [
+                self._to_dev(self._pad(r1_codes[start:end], C, N_CODE), torch.int8),
+                self._to_dev(self._pad(r1_lens[start:end], C, 0), torch.int32),
+            ]
+            if self.paired:
+                args += [
+                    self._to_dev(self._pad(r2_codes[start:end], C, N_CODE), torch.int8),
+                    self._to_dev(self._pad(r2_lens[start:end], C, 0), torch.int32),
+                ]
+            pending.append((*self._step(*args), end - start))
+        return pending
+
+    def align_packed_async(self, pb: dict):
+        """Dispatch a packed-wire batch (io.packing.pack_batch dict) chunk by
+        chunk, with dense N flags. Same pending-list contract as
+        align_batch_async."""
+        n = pb["r1_words"].shape[0]
+        C = self.chunk_size
+        L = self.max_len
+        Lf = (L + 31) // 32
+        pending = []
+        for start in range(0, n, C):
+            end = min(start + C, n)
+            args = []
+            for mate in ("r1", "r2") if self.paired else ("r1",):
+                w = self._pad(pb[f"{mate}_words"][start:end], C, 0)
+                lens = self._pad(pb[f"{mate}_lens"][start:end], C, 0)
+                nidx = pb[f"{mate}_nidx"]
+                nrows = pb[f"{mate}_nrows"]
+                lo = int(np.searchsorted(nidx, start))
+                hi = int(np.searchsorted(nidx, end))
+                dense = np.zeros((C, Lf), dtype=np.int32)
+                dense[nidx[lo:hi] - start] = nrows[lo:hi]
+                codes = unpack_reads(self._to_dev(w, torch.int32), L, self._to_dev(dense, torch.int32))
+                args += [codes, self._to_dev(lens, torch.int32)]
+            pending.append((*self._step(*args), end - start))
+        return pending
+
+    def align_batch(self, r1_codes: np.ndarray, r1_lens: np.ndarray,
+                    r2_codes: Optional[np.ndarray] = None,
+                    r2_lens: Optional[np.ndarray] = None):
+        """Align a host batch of any size; returns host numpy outputs."""
+        return self.collect_async(self.align_batch_async(r1_codes, r1_lens, r2_codes, r2_lens))
+
+
+class AlignEngine(ChunkDispatch):
     """Single-device alignment engine over fixed-shape chunks
     (engine.py:2698) on any path of the reference's (group, gband, groupcls,
     mono, monocls or either two-choice probe), chosen as the reference
@@ -988,8 +1085,7 @@ class AlignEngine:
         self.max_len = max(max_len, index.k)
         self.paired = paired
         W = index.bitset_words
-        if self.max_len > MAX_LEN_LIMIT:
-            raise ValueError(f"max_len {self.max_len} > {MAX_LEN_LIMIT} (packed uint16 scores)")
+        self._check_max_len()
         # group probe (engine.py:2740-2747): one (k+g-1)-mer gather answers g
         # windows, when the index has group entries, W <= 8 (group) or
         # W > 16 (gband or groupcls), reads are probed at stride 1 and are at
@@ -1045,20 +1141,6 @@ class AlignEngine:
         name = next(n for k, n in self.PATHS if k in self.tables)
         return name + " (class bands)" if "class_band" in self.tables else name
 
-    @property
-    def table_bytes(self) -> int:
-        """Bytes of the tables on the engine's device."""
-        return sum(t.numel() * t.element_size() for t in self.tables.values() if isinstance(t, torch.Tensor))
-
-    def _pad(self, arr, n, fill):
-        if arr.shape[0] == n:
-            return arr
-        pad_width = [(0, n - arr.shape[0])] + [(0, 0)] * (arr.ndim - 1)
-        return np.pad(arr, pad_width, constant_values=fill)
-
-    def _to_dev(self, a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device).to(dtype)
-
     def _step(self, *args):
         """One chunk through align_step and this engine's wire -> (flat
         tensor, wire tag)."""
@@ -1073,55 +1155,6 @@ class AlignEngine:
         # class; classes over the cap never reach the TSV
         out = {**out, "pass_": out["pass_"] & (popcount32_rows(rows[:, 1:]) <= cap), "_band": rows}
         return pack_outputs_idlist(out, cap, Pw, packed16=packed16, hdr1=hdr1), self.wire
-
-    def align_batch_async(self, r1_codes: np.ndarray, r1_lens: np.ndarray,
-                          r2_codes: Optional[np.ndarray] = None,
-                          r2_lens: Optional[np.ndarray] = None):
-        """Dispatch a host batch of int8 codes chunk by chunk (no wait).
-        Returns [(flat device tensor, valid rows, wire tag)] for
-        collect_async."""
-        n = r1_codes.shape[0]
-        C = self.chunk_size
-        pending = []
-        for start in range(0, n, C):
-            end = min(start + C, n)
-            args = [
-                self._to_dev(self._pad(r1_codes[start:end], C, N_CODE), torch.int8),
-                self._to_dev(self._pad(r1_lens[start:end], C, 0), torch.int32),
-            ]
-            if self.paired:
-                args += [
-                    self._to_dev(self._pad(r2_codes[start:end], C, N_CODE), torch.int8),
-                    self._to_dev(self._pad(r2_lens[start:end], C, 0), torch.int32),
-                ]
-            pending.append((*self._step(*args), end - start))
-        return pending
-
-    def align_packed_async(self, pb: dict):
-        """Dispatch a packed-wire batch (io.packing.pack_batch dict) chunk by
-        chunk, with dense N flags. Same pending-list contract as
-        align_batch_async."""
-        n = pb["r1_words"].shape[0]
-        C = self.chunk_size
-        L = self.max_len
-        Lf = (L + 31) // 32
-        pending = []
-        for start in range(0, n, C):
-            end = min(start + C, n)
-            args = []
-            for mate in ("r1", "r2") if self.paired else ("r1",):
-                w = self._pad(pb[f"{mate}_words"][start:end], C, 0)
-                lens = self._pad(pb[f"{mate}_lens"][start:end], C, 0)
-                nidx = pb[f"{mate}_nidx"]
-                nrows = pb[f"{mate}_nrows"]
-                lo = int(np.searchsorted(nidx, start))
-                hi = int(np.searchsorted(nidx, end))
-                dense = np.zeros((C, Lf), dtype=np.int32)
-                dense[nidx[lo:hi] - start] = nrows[lo:hi]
-                codes = unpack_reads(self._to_dev(w, torch.int32), L, self._to_dev(dense, torch.int32))
-                args += [codes, self._to_dev(lens, torch.int32)]
-            pending.append((*self._step(*args), end - start))
-        return pending
 
     def collect_async(self, pending):
         """Copy dispatched outputs to host numpy and unpack each chunk by
@@ -1147,9 +1180,3 @@ class AlignEngine:
         if "band_rows" in merged:
             merged["band_meta"] = (self.band_pw, W)
         return merged
-
-    def align_batch(self, r1_codes: np.ndarray, r1_lens: np.ndarray,
-                    r2_codes: Optional[np.ndarray] = None,
-                    r2_lens: Optional[np.ndarray] = None):
-        """Align a host batch of any size; returns host numpy outputs."""
-        return self.collect_async(self.align_batch_async(r1_codes, r1_lens, r2_codes, r2_lens))

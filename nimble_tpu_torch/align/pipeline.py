@@ -8,10 +8,17 @@ collapse, trimming, `--probe`, the group paths' short-read repair and the
 three emission routes (dense bits, gband band rows, idlist ids) are the
 reference's own, so the output is byte-identical.
 
+Several comma-separated libraries run as one engine each. With
+NIMBLE_TPU_STACK=1 they run as one stacked engine instead (align/stacked.py:
+one merged probe answers every library) wherever the reference stacks them:
+they share one trim, k, stride and fit the stack's width, and their stacked
+tables can be placed. The stack is opt-in because on the H100 it has lost
+to the per-library engines on every workload measured (PERF.md, section 5):
+its merged table is far larger and the libraries' tails still run once each.
+
 The port runs one process on one device. It refuses the reference's
 `--mesh` and multi-process worlds (ROADMAP Queue 1 item 8) and `--resume`
-(item 4); several comma-separated libraries run as one engine each, as the
-reference does under NIMBLE_TPU_NO_STACK=1 (stacking is item 6).
+(item 4).
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ import torch
 from nimble_tpu_torch.config import Config, load_library
 from nimble_tpu_torch.index.builder import KmerIndex, build_index_for_library
 from nimble_tpu_torch.align.engine import AlignEngine, expand_band_rows_np, ids_to_bits_np
+from nimble_tpu_torch.align.stacked import NotStackable, StackedEngine
 
 TSV_HEADER = [
     "nimble_features",
@@ -529,11 +537,37 @@ def _make_batches(inputs: Sequence[str], is_bam: bool, batch_records: int,
 
 def _build_engines(runners: List[LibraryRunner], device: torch.device,
                    strand_filter: str, chunk_size: Optional[int], max_len: int,
-                   paired: bool, chunk_cap: Optional[int], log) -> None:
-    """(Re)construct each library's engine at a given max read length; the
-    run log's `engine` event says which path it took, its chunk size, its
-    table bytes and its wire."""
+                   paired: bool, chunk_cap: Optional[int], log) -> Optional[StackedEngine]:
+    """(Re)construct the engines at a given max read length
+    (pipeline.py:_build_engines): one engine per library, or, when
+    NIMBLE_TPU_STACK=1 opts in, ONE stacked engine for every library where
+    the reference stacks them (several libraries, one trim,
+    StackedEngine.compatible), unless their stacked tables cannot be placed
+    (NotStackable, the run log's `stacked_engine` event with `refused`).
+    The run log's `engine` event says which path each engine took, its
+    chunk size, its table bytes and its wire; a stacked engine's also the
+    libraries it answers.
+    Returns the stacked engine, or None (engines on the runners)."""
     with log.stage("engine_build", max_len=max_len):
+        stacked = None
+        indexes = [r.index for r in runners]
+        configs = [r.config for r in runners]
+        if (len(runners) > 1 and len({r.trim for r in runners}) == 1
+                and os.environ.get("NIMBLE_TPU_STACK", "") == "1"
+                and StackedEngine.compatible(indexes, configs)):
+            try:
+                stacked = StackedEngine(indexes, configs, device, strand_filter=strand_filter,
+                                        chunk_size=chunk_size, max_len=max_len, paired=paired,
+                                        chunk_cap=chunk_cap)
+            except NotStackable as e:
+                log.event("stacked_engine", n_libraries=len(runners), max_len=max_len, refused=str(e))
+        if stacked is not None:
+            for r in runners:
+                r.engine = None
+            log.event("stacked_engine", n_libraries=len(runners), group_g=stacked.group_g, max_len=max_len)
+            log.event("engine", path=stacked.path, chunk_size=stacked.chunk_size,
+                      table_bytes=stacked.table_bytes, wire=stacked.wire, n_libraries=len(runners))
+            return stacked
         for r in runners:
             r.engine = AlignEngine(
                 r.index, r.config, device,
@@ -545,6 +579,7 @@ def _build_engines(runners: List[LibraryRunner], device: torch.device,
             )
             log.event("engine", path=r.engine.path, chunk_size=r.engine.chunk_size,
                       table_bytes=r.engine.table_bytes, wire=r.engine.wire)
+    return None
 
 
 def refuse_unported(mesh: str = "", resume: bool = False) -> None:
@@ -658,15 +693,15 @@ def align_files(
         else:
             L = reader_len
 
-        _build_engines(runners, device, strand_filter, chunk_size, L, paired,
-                       batch_records, log)
-        span = runners[0].engine.chunk_size
+        stacked = _build_engines(runners, device, strand_filter, chunk_size, L, paired,
+                                 batch_records, log)
+        span = stacked.chunk_size if stacked is not None else runners[0].engine.chunk_size
         feeder = SpanFeeder(span, paired)
 
         def patch_short(r, out, sb):
-            # group path only: rows whose shortest mate is under k+g-1 get
-            # exact host mono results instead of its unmapped verdict
-            group_g = r.engine.params.group_g
+            # group paths only: rows whose shortest mate is under k+g-1 get
+            # exact host mono results instead of their unmapped verdict
+            group_g = stacked.group_g if stacked is not None else r.engine.params.group_g
             if out is None or group_g < 2:
                 return
             min_len = r.index.k + group_g - 1
@@ -698,8 +733,11 @@ def align_files(
         def finalize(entry):
             nonlocal total
             n, handles, sb = entry
-            for r, h in zip(runners, handles):
-                out = r.engine.collect_async(h)
+            if stacked is not None:
+                outs = stacked.collect_async(handles) or [None] * len(runners)
+            else:
+                outs = [r.engine.collect_async(h) for r, h in zip(runners, handles)]
+            for r, out in zip(runners, outs):
                 patch_short(r, out, sb)
                 r.emit_out(out, sb)
             total += n
@@ -707,7 +745,14 @@ def align_files(
 
         def submit(sb):
             # per-runner trim applies to the lens only; windows beyond the
-            # trimmed length are invalidated on the device by `inside`
+            # trimmed length are invalidated on the device by `inside`. A
+            # stack's libraries share one trim.
+            if stacked is not None:
+                pb = dict(sb)
+                pb["r1_lens"] = trimmed_lens(sb["r1_lens"], runners[0].trim)
+                if paired:
+                    pb["r2_lens"] = trimmed_lens(sb["r2_lens"], runners[0].trim)
+                return stacked.align_packed_async(pb)
             handles = []
             for r in runners:
                 pb = dict(sb)
@@ -786,8 +831,12 @@ def align_files(
                 # the engines wider (the feeder already re-padded its backlog)
                 drain()
                 log.event("max_len_rebuild", max_len=payload)
-                _build_engines(runners, device, strand_filter, chunk_size,
-                               payload, paired, batch_records, log)
+                # free the old engines' tables before the new ones are built
+                stacked = None
+                for r in runners:
+                    r.engine = None
+                stacked = _build_engines(runners, device, strand_filter, chunk_size,
+                                         payload, paired, batch_records, log)
             else:
                 qput((payload["r1_lens"].shape[0], submit(payload), payload))
         drain()

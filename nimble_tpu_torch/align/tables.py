@@ -148,6 +148,19 @@ def _bits_of(index: KmerIndex):
     return bits_of
 
 
+def _occupied_entries(index: KmerIndex):
+    """The index's occupied canonical entries, two-choice table then stash:
+    (hi, lo, vs, vd), vs / vd the class ids of the canonical code and of
+    its reverse complement (-1 = absent)."""
+    occ = (index.table_vsame >= 0) | (index.table_vdiff >= 0)
+    socc = (index.stash_vsame >= 0) | (index.stash_vdiff >= 0)
+    hi = np.concatenate([index.table_hi[occ], index.stash_hi[socc]])
+    lo = np.concatenate([index.table_lo[occ], index.stash_lo[socc]])
+    vs = np.concatenate([index.table_vsame[occ], index.stash_vsame[socc]])
+    vd = np.concatenate([index.table_vdiff[occ], index.stash_vdiff[socc]])
+    return hi, lo, vs, vd
+
+
 def _single_hash_placement(hi: np.ndarray, lo: np.ndarray, entry_words: int, slots: int):
     """engine.py:_single_hash_placement — grow-until-tight single-hash
     placement. Returns None (infeasible under MONO_MAX_BYTES/MONO_MAX_STASH)
@@ -269,12 +282,7 @@ def build_mono_tables(index: KmerIndex) -> Optional[Dict[str, np.ndarray]]:
     two-choice entry reinserted by h1 into single-hash buckets of MONO_SLOTS
     slots. None when the index is empty or placement blows its budget."""
     W = index.bitset_words
-    occ = (index.table_vsame >= 0) | (index.table_vdiff >= 0)
-    socc = (index.stash_vsame >= 0) | (index.stash_vdiff >= 0)
-    hi = np.concatenate([index.table_hi[occ], index.stash_hi[socc]])
-    lo = np.concatenate([index.table_lo[occ], index.stash_lo[socc]])
-    vs = np.concatenate([index.table_vsame[occ], index.stash_vsame[socc]])
-    vd = np.concatenate([index.table_vdiff[occ], index.stash_vdiff[socc]])
+    hi, lo, vs, vd = _occupied_entries(index)
     if hi.shape[0] == 0:
         return None
     entry = 2 + 2 * W
@@ -368,12 +376,7 @@ def build_monocls_tables(index: KmerIndex) -> Optional[Dict[str, np.ndarray]]:
     MONO_SLOTS slots, with class ids as payload, planar rows [hi x S | lo x
     S | vs x S | vd x S] (one 64-byte row a window). None when the index is
     empty or placement blows its budget."""
-    occ = (index.table_vsame >= 0) | (index.table_vdiff >= 0)
-    socc = (index.stash_vsame >= 0) | (index.stash_vdiff >= 0)
-    hi = np.concatenate([index.table_hi[occ], index.stash_hi[socc]])
-    lo = np.concatenate([index.table_lo[occ], index.stash_lo[socc]])
-    vs = np.concatenate([index.table_vsame[occ], index.stash_vsame[socc]])
-    vd = np.concatenate([index.table_vdiff[occ], index.stash_vdiff[socc]])
+    hi, lo, vs, vd = _occupied_entries(index)
     if hi.shape[0] == 0:
         return None
     placement = _single_hash_placement(hi, lo, 4, MONO_SLOTS)

@@ -12,6 +12,10 @@ build_library with its seed and draws (20 families x 1,000 alleles x 3 kb,
 25 SNPs each: 20,000 features, W = 625 words), and reads and pairs drawn
 from it; or its first families alone, in family order or allele-major.
 
+The stacked workload (`write_stacked`): scripts/stackscale.py's three
+libraries with HLA-100's 100 alleles each (stackscale has 40), reads drawn
+round-robin from them as stackscale draws them, and 10x-shaped pairs.
+
 The report workload (`write_report_tsv`): an align TSV as a 10x run's
 `align` writes it, over a library's feature names, for `report`.
 """
@@ -94,9 +98,17 @@ def write_paired(outdir, n_pairs: int):
     """`whitelist.txt`, `paired_r1_<n_pairs>.fastq.gz` and
     `paired_r2_<n_pairs>.fastq.gz` in outdir, from the library of
     write_single. Returns (R1 path, R2 path, whitelist path)."""
+    return _write_pairs(outdir, n_pairs, hla100_alleles(np.random.default_rng(0))[None], "paired")
+
+
+def _write_pairs(outdir, n_pairs: int, mats: np.ndarray, tag: str):
+    """10x-shaped pairs from the alleles of one or more libraries (mats:
+    (n_libraries, alleles, ALLELE_LEN)), pair i from library i mod
+    n_libraries: `whitelist.txt`, `<tag>_r1_<n_pairs>.fastq.gz` and
+    `<tag>_r2_<n_pairs>.fastq.gz` in outdir. One library gives the draws of
+    scripts/make_paired_bench.py."""
     outdir = pathlib.Path(outdir)
     outdir.mkdir(parents=True, exist_ok=True)
-    mat = hla100_alleles(np.random.default_rng(0))
     rng = np.random.default_rng(42)
     cells = _LUT[rng.integers(0, 4, size=(N_CELLS, CB_LEN))]
     wl = outdir / "whitelist.txt"
@@ -104,19 +116,21 @@ def write_paired(outdir, n_pairs: int):
         for c in cells:
             f.write(c.tobytes().decode() + "\n")
 
-    r1p = outdir / f"paired_r1_{n_pairs}.fastq.gz"
-    r2p = outdir / f"paired_r2_{n_pairs}.fastq.gz"
+    r1p = outdir / f"{tag}_r1_{n_pairs}.fastq.gz"
+    r2p = outdir / f"{tag}_r2_{n_pairs}.fastq.gz"
     q1 = b"I" * (CB_LEN + UMI_LEN + R1_CDNA)
     q2 = b"I" * R2_LEN
     chunk = 1 << 16
     with gzip.open(r1p, "wb", compresslevel=1) as f1, gzip.open(r2p, "wb", compresslevel=1) as f2:
         for done in range(0, n_pairs, chunk):
             n = min(chunk, n_pairs - done)
-            src = rng.integers(0, N_ALLELES, size=n)
+            lib = ((done + np.arange(n)) % mats.shape[0])[:, None]
+            src = rng.integers(0, mats.shape[1], size=n)
             st = rng.integers(0, ALLELE_LEN - (R1_CDNA + 120 + R2_LEN), size=n)
-            c1 = mat[src[:, None], st[:, None] + np.arange(R1_CDNA)[None, :]].astype(np.int8)
+            c1 = mats[lib, src[:, None], st[:, None] + np.arange(R1_CDNA)[None, :]].astype(np.int8)
             st2 = st + R1_CDNA + 120
-            c2 = seqmod.revcomp_codes(mat[src[:, None], st2[:, None] + np.arange(R2_LEN)[None, :]].astype(np.int8))
+            c2 = seqmod.revcomp_codes(mats[lib, src[:, None], st2[:, None] + np.arange(R2_LEN)[None, :]]
+                                      .astype(np.int8))
             for c in (c1, c2):
                 err = rng.random(c.shape) < ERROR_RATE
                 c[...] = np.where(err, rng.integers(0, 4, size=c.shape), c).astype(np.int8)
@@ -127,6 +141,61 @@ def write_paired(outdir, n_pairs: int):
                                                             s1[i].tobytes(), q1) for i in range(n)))
             f2.write(b"".join(b"@p%d\n%s\n+\n%s\n" % (done + i, s2[i].tobytes(), q2) for i in range(n)))
     return str(r1p), str(r2p), str(wl)
+
+
+# the stacked workload: scripts/stackscale.py's libraries, with N_PER_LIB
+# raised from 40 to HLA-100's N_ALLELES
+STACK_LIBS = 3
+
+
+def stacked_names(seed: int):
+    """Library `seed`'s feature names, in library order (stackscale's)."""
+    return [f"l{seed}a{i:03d}" for i in range(N_ALLELES)]
+
+
+def write_stacked(outdir, n_reads: int, n_pairs: int = 0, alleles: int = N_ALLELES):
+    """The multi-library workload of scripts/stackscale.py: STACK_LIBS
+    libraries (seeds 0, 1, 2), each N_ALLELES alleles of its own 3 kb
+    backbone with 30 positions redrawn (lib_workload's draws, which are
+    hla100_alleles'), as `stacked<seed>.json`; `stacked_reads_<n>.fastq.gz`,
+    100 bp reads drawn round-robin from the libraries with stackscale's
+    draws (seed 9; 1% substitutions; half reverse-complemented, seed 1);
+    and with n_pairs, 10x-shaped pairs drawn round-robin from them
+    (_write_pairs). `alleles` < N_ALLELES keeps each library's first
+    alleles, and draws the reads from them: a small copy for tests. Returns
+    (library paths, FASTQ path, (R1, R2, whitelist) or None)."""
+    outdir = pathlib.Path(outdir)
+    outdir.mkdir(parents=True, exist_ok=True)
+    mats = np.stack([hla100_alleles(np.random.default_rng(seed))[:alleles] for seed in range(STACK_LIBS)])
+    libs = []
+    for seed, mat in enumerate(mats):
+        data = Data()
+        for name, a in zip(stacked_names(seed), mat):
+            for col, v in zip(data.columns, (f"lib{seed}", name, str(ALLELE_LEN), seqmod.decode(a))):
+                col.append(v)
+        path = outdir / f"stacked{seed}.json"
+        with open(path, "w") as f:
+            json.dump([Config().to_dict(), data.__dict__], f)
+        libs.append(str(path))
+
+    rng = np.random.default_rng(9)
+    codes = np.empty((n_reads, READ_LEN), dtype=np.int8)
+    for i in range(n_reads):
+        a = mats[i % STACK_LIBS, rng.integers(0, alleles)]
+        st = rng.integers(0, ALLELE_LEN - READ_LEN + 1)
+        codes[i] = a[st : st + READ_LEN]
+    err = rng.random(codes.shape) < ERROR_RATE
+    codes = np.where(err, rng.integers(0, 4, size=codes.shape), codes).astype(np.int8)
+    rc = np.random.default_rng(1).random(n_reads) < 0.5
+    codes[rc] = seqmod.revcomp_codes(codes[rc])
+    fq = outdir / f"stacked_reads_{n_reads}.fastq.gz"
+    qual = b"I" * READ_LEN
+    with gzip.open(fq, "wb", compresslevel=1) as f:
+        for start in range(0, n_reads, 1 << 17):
+            f.write(b"".join(b"@s%d\n%s\n+\n%s\n" % (start + i, r.tobytes(), qual)
+                             for i, r in enumerate(_LUT[codes[start : start + (1 << 17)]])))
+    pairs = _write_pairs(outdir, n_pairs, mats, "stacked") if n_pairs else None
+    return libs, str(fq), pairs
 
 
 # the 20k-allele library (published shape, not cut) and its reads

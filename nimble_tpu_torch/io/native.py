@@ -4,12 +4,17 @@ Loads (building on first use if the toolchain is present) libnimble_native.so
 and exposes a native FASTQ batch reader with the same batch-dict interface as
 the pure-Python nimble_tpu_torch.io.fastq.FastqReader. Falls back gracefully:
 `available()` gates every caller.
+
+The library is built by nimble_tpu_torch/native_build.py, in a private copy
+of native/ and moved into place atomically, never by `make` in place: a
+process that loads the library while another one builds it then finds either
+no file or a whole one, not a half-written one (which would fail to load,
+and the process would run the python fallbacks for good).
 """
 from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 from typing import Iterator, Optional
 
 import numpy as np
@@ -30,14 +35,9 @@ def _load() -> Optional[ctypes.CDLL]:
         return _LIB
     _LIB_TRIED = True
     if not os.path.exists(_SO_PATH):
-        try:
-            subprocess.run(
-                ["make", "-C", _NATIVE_DIR],
-                check=True,
-                capture_output=True,
-                timeout=120,
-            )
-        except Exception:
+        from nimble_tpu_torch.native_build import build_native
+
+        if not build_native(_NATIVE_DIR)[0]:
             return None
     try:
         lib = ctypes.CDLL(_SO_PATH)

@@ -20,6 +20,7 @@ import pathlib
 import shutil
 import subprocess
 import sys
+import time
 import zipfile
 
 import numpy as np
@@ -127,8 +128,40 @@ OUTPUTS = ("lib.json", "tagged.bam", "out.tsv", "counts.tsv", "summarize.counts.
            "counts_stream.tsv", "report.html", "legacy.tsv")
 
 
+def native_in_both(wait_s: float = 60.0) -> bool:
+    """Make the native host library (native/) present, and loaded in both
+    packages' loaders or in neither. Returns whether it is loaded.
+
+    The reference's loader runs `make -C native` in place when the library
+    is absent, and some of the reference's test modules call it as they are
+    collected; under xdist every worker does that at once, and a worker
+    that loads the file while another worker's linker is writing it fails
+    and keeps the python fallbacks for the rest of its life. Its index
+    builder is then numpy's, whose table sizes and class numbering differ
+    from the native builder's that the port loads later. So: build the
+    library if it is absent (atomically, native_build), then let a loader
+    that failed load again, until both hold it or `wait_s` has passed."""
+    from nimble_tpu.io import native as ref_native
+    from nimble_tpu_torch.io import native as port_native
+    from nimble_tpu_torch.native_build import build_native
+
+    built, how = build_native()
+    deadline = time.monotonic() + wait_s
+    while True:
+        for loader in (ref_native, port_native):
+            if loader._LIB is None:
+                loader._LIB_TRIED = False
+        loaded = (ref_native.available(), port_native.available())
+        if loaded == (built, built) or time.monotonic() > deadline:
+            break
+        time.sleep(0.5)  # another process may still be writing the file in place
+    assert loaded == (built, built), f"native library: {how}; loaded (reference, port) = {loaded}"
+    return built
+
+
 @pytest.fixture(scope="module")
 def both_runs(tmp_path_factory):
+    native_in_both()
     src = tmp_path_factory.mktemp("inputs")
     write_inputs(src)
     ref, port = tmp_path_factory.mktemp("ref"), tmp_path_factory.mktemp("port")
@@ -181,11 +214,13 @@ def test_cli_index_files_hold_identical_members(both_runs, name):
 
 def build_both(data, config, **kw):
     """The reference's index and the port's of one library, each built by
-    its own package's builder (the port's from its own Config and Data),
-    asserted equal. Port code takes the second, reference code the first."""
+    its own package's builder (the port's from its own Config and Data), with
+    the native library loaded in both or in neither, asserted equal. Port
+    code takes the second, reference code the first."""
     from nimble_tpu_torch.config import Config as PortConfig
     from nimble_tpu_torch.config import Data as PortData
 
+    native_in_both()  # else the two packages may build with different builders
     ref = build_index(data, config, **kw)
     port = port_build_index(PortData(headers=list(data.headers), columns=[list(c) for c in data.columns]),
                             PortConfig(**dataclasses.asdict(config)), **kw)

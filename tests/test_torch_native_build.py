@@ -54,3 +54,42 @@ def test_cli_says_so_when_no_compiler_works(tmp_path, native_dir, monkeypatch, c
     assert "CXX=g++ (environment)" in err and f"CXX={bad}: error: cannot read spec file" in err
     assert not (native_dir / native_build.LIB_NAME).exists()
     assert sorted(os.listdir(native_dir)) == ["Makefile", "nimble_native.cpp"]
+
+
+def test_loader_builds_through_native_build(tmp_path, native_dir, monkeypatch):
+    """The port's loader builds an absent library with build_native, in a
+    private copy of native/ moved into place whole, never with `make` in
+    place: a process that loads it meanwhile finds no file or a whole one."""
+    from nimble_tpu_torch.io import native as port_native
+
+    where = tmp_path / "built_in"
+    cxx = tmp_path / "record-cxx"
+    cxx.write_text(f'#!/bin/sh\npwd > "{where}"\necho built > "$1"\n')
+    cxx.chmod(cxx.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(native_build, "COMPILERS", (str(cxx),))
+    monkeypatch.setattr(port_native, "_NATIVE_DIR", str(native_dir))
+    monkeypatch.setattr(port_native, "_SO_PATH", str(native_dir / native_build.LIB_NAME))
+    monkeypatch.setattr(port_native, "_LIB", None)
+    monkeypatch.setattr(port_native, "_LIB_TRIED", False)
+    assert port_native._load() is None  # the stand-in library is no ELF file
+    assert (native_dir / native_build.LIB_NAME).read_text() == "built\n"
+    built_in = where.read_text().strip()
+    assert os.path.dirname(built_in) == str(native_dir) and os.path.basename(built_in).startswith(".build-")
+    assert sorted(os.listdir(native_dir)) == ["Makefile", native_build.LIB_NAME, "nimble_native.cpp"]
+
+
+def test_native_in_both_reloads_a_loader_that_failed(monkeypatch):
+    """A loader that failed once (as one does that reads the library while
+    another process's linker writes it) loads again once the library is
+    whole, so both packages build indexes with the same builder."""
+    from nimble_tpu.io import native as ref_native
+    from nimble_tpu_torch.io import native as port_native
+    from tests.test_torch_host_parity import native_in_both
+
+    assert native_in_both()
+    for loader in (ref_native, port_native):
+        monkeypatch.setattr(loader, "_LIB", None)
+        monkeypatch.setattr(loader, "_LIB_TRIED", True)
+    assert not ref_native.available() and not port_native.available()
+    assert native_in_both()
+    assert ref_native.available() and port_native.available()

@@ -2,6 +2,7 @@
 made unimportable, and no module under nimble_tpu_torch/ (nor chip_smoke.py)
 imports jax or any part of nimble_tpu, not even one without jax in it."""
 import ast
+import os
 import pathlib
 import shutil
 import subprocess
@@ -45,6 +46,31 @@ def test_align_cli_runs_without_jax(tmp_path):
 def test_align_probe_mono_runs_without_jax(tmp_path):
     """The mono path (tables, mono_probe, engine) imports no jax either."""
     _align_without_jax(tmp_path, ["--probe", "mono"], "golden_probe_mono.tsv")
+
+
+def test_stacked_align_runs_without_jax(tmp_path):
+    """Several libraries through the stacked engine (align/stacked.py, opted
+    in by NIMBLE_TPU_STACK=1) import no jax either; each library's TSV is
+    the one it gets alone."""
+    from nimble_tpu_torch.align import stacked
+
+    assert stacked.StackedEngine.compatible  # the module imports on its own
+    libs = []
+    for name in ("liba", "libb"):
+        shutil.copy(GOLD / "lib_base.json", tmp_path / f"{name}.json")
+        libs.append(str(tmp_path / f"{name}.json"))
+    out = tmp_path / "out.tsv"
+    log = tmp_path / "runlog.jsonl"
+    res = subprocess.run(
+        [sys.executable, "-c", SCRIPT, "align", "--reference", ",".join(libs),
+         "--output", str(out), "--input", str(GOLD / "r1.fastq"), str(GOLD / "r2.fastq"), "--device", "cpu"],
+        cwd=REPO, capture_output=True, text=True, timeout=300, env={**os.environ, "NIMBLE_TPU_RUNLOG": str(log), "NIMBLE_TPU_STACK": "1"},
+    )
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "LOADED []" in res.stdout
+    assert '"path": "stacked-group"' in log.read_text()
+    for name in ("liba", "libb"):
+        assert (tmp_path / f"out.{name}.tsv").read_bytes() == (GOLD / "golden_base.tsv").read_bytes()
 
 
 def _wide_without_jax(tmp_path, seqs, flags, start: int = 50):
