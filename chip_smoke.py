@@ -66,32 +66,32 @@ checking their kernels:
      intersects them with band_tree_expand (checked against its plain
      version at Q1 = P, timed), and the same chunk's step is timed again
      over class_bits (the class-bits intersection at W = 625, its output
-     equal to the banded step's); the first 262,144 of its reads and 65,536
+     equal to the banded step's); the first 131,072 of its reads and 32,768
      of its pairs, and 16,384 reads cuda against cpu;
  14. (B) groupcls at W = 157: the first 5 families of the wide generator
      written allele-major (bench_data, `interleaved`: 5,000 alleles whose
      classes are not contiguous, so robust banding fails), default probe,
-     262,144 reads, 65,536 pairs, 16,384 reads cuda against cpu;
+     131,072 reads, 32,768 pairs, 16,384 reads cuda against cpu;
  15. (C) monocls with class bands at W = 125: the first 4 families in
      family order (no k-mer shared between families), `--probe mono`,
-     262,144 reads, 16,384 reads cuda against cpu; band_tree_expand == its
+     131,072 reads, 16,384 reads cuda against cpu; band_tree_expand == its
      plain version at the class ids the step passes it (Q1 = P), timed;
  16. (E) monocls with class bits at W = 157: B's library under `--probe
-     mono`, 262,144 reads, 16,384 reads cuda against cpu;
+     mono`, 131,072 reads, 16,384 reads cuda against cpu;
  17. (D) the wide two-choice probe: B's library under `--probe mono` with
      the placement cap (tables.MONO_MAX_BYTES, what NIMBLE_TPU_MONO_MAX_BYTES
-     sets at import) one byte under monocls's smallest table; 262,144
+     sets at import) one byte under monocls's smallest table; 131,072
      reads, 16,384 reads cuda against cpu.
  18. the report (`report`, then `report --device` on the card): (a) the
      tagged pairs' align TSV of phase 5, host against `--device` (and
-     `--device cpu`); (b) bench_data.write_report_tsv, 1,048,576 rows
+     `--device cpu`); (b) bench_data.write_report_tsv, 524,288 rows
      (cut from 2,097,152; `python3 -m nimble_tpu_torch.report_bench`
      runs any size) over HLA-100's names (10,000 cells, 1-16 reads a UMI, 10% off
      reads), host exact, `--stream` and `--device` twice, each with its
      wall and rows/s, and `--device`'s wall split by part from the run
      log (TSV parse, extract_report_rows, rows_to_bitsets + factorize,
      H2D, the pipeline in CUDA events with its fixpoint iterations, D2H,
-     decode + count + write); (c) 524,288 rows over the 20k library's
+     decode + count + write); (c) 262,144 rows over the 20k library's
      names (W = 625), host and `--device`, with the pipeline's time and
      the peak device memory. Every `--device` output must equal the host
      report byte for byte, or, where the tie guard counted near ties,
@@ -118,6 +118,26 @@ checking their kernels:
      16,384 reads on cuda against cpu on both stacks, byte-identical. Each
      run must take its path (stacked, or one engine per library on the
      unstacked path) and launch its kernels.
+ 20. `align --resume` and multi-process worlds (NIMBLE_TPU_NUM_PROCS /
+     NIMBLE_TPU_PROC_ID), each output byte-identical to the uninterrupted
+     run of an earlier phase: (a) phase 5's 1,048,576 reads, the run killed
+     (os._exit(9) right after its 6th span's rows, before their checkpoint)
+     and resumed (`Resuming from read N`, N a multiple of the span, no
+     sidecar left); (b) a world of two processes on them (-c halved,
+     reader batches of half a span), launched together, beside one process
+     alone in a subprocess and phase 5's wall: merged == phase 5's TSV, no
+     shard left, each process's `Decode shard` line at most 0.7 of the reads
+     parsed, the merge's copy timed; (c) that world with process 0 killed
+     after 3 of its spans and resumed; (d) a world of two on phase 5's BAM
+     pairs (ownership alone shards them); (e) the 20k library (gband) on
+     phase 11's 524,288 reads: a world of two (its kill and resume, which
+     the CPU tests hold at a small width, left out for the time limit); (f)
+     kill and resume under `--probe mono` on the first 262,144 of phase 5's
+     reads, against the uninterrupted mono run of the same cut. Killed runs
+     and world processes are subprocesses of the port's CLI, each with a run
+     log of its own whose `engine` events must name the path; every process
+     that ends must launch its path's kernels; the resumes run in this
+     process and their launches count.
 On 13-17 the engine `align` builds must take the named path (the run log's
 `engine` event), kmer_keys == its plain version at the arguments it passes
 for the first chunk of the reads, and that chunk's step is timed by stage
@@ -157,6 +177,7 @@ sys.modules["nimble_tpu"] = None  # nor the JAX package
 
 import contextlib
 import gzip
+import io
 import itertools
 import json
 import math
@@ -197,18 +218,20 @@ N_WIDE_CMP = 16_384
 WIDE_KERNELS = ["kmer_keys", "band_tree_expand"]
 
 # the class-id wide paths (phases 13-17): single-end reads, pairs and the
-# reads through cuda and cpu of each
-N_CLS_READS = 262_144
-N_CLS_PAIRS = 65_536
+# reads through cuda and cpu of each; reads and pairs cut from 262,144 and
+# 65,536 to make room for phase 20
+N_CLS_READS = 131_072
+N_CLS_PAIRS = 32_768
 N_CLS_CMP = 16_384
 GCLS_FAMILIES = 5  # groupcls: 5,000 alleles written allele-major, W = 157
 BAND_FAMILIES = 4  # banded monocls: 4,000 alleles in family order, W = 125
 NO_GROUP = {"NIMBLE_TPU_NO_GROUP_PROBE": "1"}
 
-# the report phase (18): bench_data.write_report_tsv's workload, (b) cut
-# from 2,097,152 rows to keep the script inside its time
-N_REPORT_ROWS = 1_048_576
-N_REPORT_WIDE = 524_288
+# the report phase (18): bench_data.write_report_tsv's workload, cut to
+# keep the script inside its time: (b) from 2,097,152 rows to 1,048,576,
+# then both to half to make room for phase 20
+N_REPORT_ROWS = 524_288
+N_REPORT_WIDE = 262_144
 
 # the stacked engine (phase 19): bench_data.write_stacked's three libraries
 N_STACK_READS = 524_288
@@ -220,6 +243,53 @@ N_STACK_CMP = 16_384
 STACK_SYNTH_W = (12, 47, 64)
 STACK_SYNTH_B = 8_192
 STACK_SYNTH_P = 92
+
+# `align --resume` and worlds (phase 20): the mono cut of (f), and how many
+# spans a killed run emits before os._exit(9): (a) and (f) single runs, (c)
+# process 0 of a world
+N_MONO_CUT = 262_144
+KILL_SPANS = 6
+MONO_KILL_SPANS = 3
+WORLD_KILL_SPANS = 3
+
+# seconds a phase 20 subprocess may run (its stacks are printed if it
+# hangs), and process 0's wait for the other shards
+PROC_DEADLINE_S = 240
+MERGE_TIMEOUT_S = 180
+
+# the port's CLI in a process of its own (jax and the JAX package
+# unimportable). KILL_AFTER_EMITS=n ends it with os._exit(9) right after the
+# n-th LibraryRunner.emit_out: that span's rows are written, its checkpoint
+# is not, nothing is cleaned up. A process that ends prints its wall (the
+# CLI's main, torch's import and the card's start-up excluded) and its
+# kernels' launch counts
+PROC_RUNNER = """
+import faulthandler, json, os, sys, time
+faulthandler.dump_traceback_later(%d, exit=True)  # a hung process prints every thread's stack and ends
+sys.modules["jax"] = None
+sys.modules["nimble_tpu"] = None
+import torch
+import nimble_tpu_torch.align.pipeline as P
+from nimble_tpu_torch.align import kernels as K
+kill = int(os.environ.get("KILL_AFTER_EMITS", "0") or 0)
+if kill:
+    emit_out = P.LibraryRunner.emit_out
+    calls = [0]
+    def wrapped(self, out, batch):
+        n = emit_out(self, out, batch)
+        calls[0] += 1
+        if calls[0] >= kill:
+            os._exit(9)
+        return n
+    P.LibraryRunner.emit_out = wrapped
+from nimble_tpu_torch.__main__ import main
+t0 = time.perf_counter()
+rc = main(sys.argv[1:])
+torch.cuda.synchronize()
+print("RESULT " + json.dumps({"wall_s": time.perf_counter() - t0, "launches": {
+    n: getattr(K, n).launches for n in ("kmer_keys", "mono_probe", "band_tree_expand")}}), flush=True)
+sys.exit(rc)
+""" % PROC_DEADLINE_S
 
 
 def say(phase: str, msg: str) -> None:
@@ -476,6 +546,8 @@ def drive(label: str, args, n: int, kernels, lo: float = 0.3, path: str = ""):
     relay = "".join(f", of it the {what} re-lay {setup[stage]:.4f}" for stage, what in
                     (("mono_relayout", "mono table's"), ("gband_relayout", "band table's"),
                      ("class_relayout", "class bands'")) if stage in setup)
+    relay += "".join(f"; {e['n']} progress checkpoints in {e['wall_s']:.4f} s" for e in stages
+                     if e["event"] == "checkpoints")
     say("main", f"{label}: {n} in {wall:.2f} s wall, {n / wall:,.0f}/s, pass rate {rows / n:.4f}, "
         f"launches {counts}; path {engine['path']}, chunk {engine['chunk_size']}, tables "
         f"{sum(e['table_bytes'] for e in engines) / 1e9:.3f} GB over {len(engines)} engine(s); set-up {t_setup:.2f} s (index load "
@@ -515,8 +587,9 @@ def phase_main_path(work: str, name: str, lib: str, fq: str):
 
     cores = str(os.cpu_count() or 1)
     say("main", f"group path on {name}, -c {cores}")
-    _, _, se = drive("group single-end reads", ["--reference", lib, "--output", os.path.join(work, "se", "out.tsv"),
-                                                 "--input", fq, "-c", cores], N_READS, ["kmer_keys"])
+    se_wall, _, se = drive("group single-end reads", ["--reference", lib, "--output",
+                                                       os.path.join(work, "se", "out.tsv"), "--input", fq,
+                                                       "-c", cores], N_READS, ["kmer_keys"])
 
     pe = os.path.join(work, "pe")
     r1, r2, whitelist = bench_data.write_paired(pe, N_PAIRS)
@@ -533,7 +606,7 @@ def phase_main_path(work: str, name: str, lib: str, fq: str):
     if os.path.getsize(counts) == 0:
         raise AssertionError("report wrote an empty count matrix for barcoded pairs")
     say("main", f"report {time.perf_counter() - t0:.2f} s")
-    return bam, pout, {k: se[k] + pe_counts[k] for k in se}
+    return bam, pout, se_wall, {k: se[k] + pe_counts[k] for k in se}
 
 
 def phase_mono_data(work: str, lib: str):
@@ -1417,6 +1490,285 @@ def phase_stacked(work: str, ref: str, fq: str, cmp_fq: str, bam: str):
     return {k: sum(c[k] for c in counts) for k in counts[0]}
 
 
+_PROCS = []  # every subprocess phase 20 starts, killed if the phase fails
+
+
+def start_align(tag: str, args, env, d: str):
+    """`align ... --device cuda` through PROC_RUNNER in a subprocess with
+    `env` over os.environ, a run log of its own and its output in a file.
+    Returns (tag, Popen, run log path, output path, start time)."""
+    base = os.path.join(d, re.sub(r"[^A-Za-z0-9]+", "_", tag).strip("_"))
+    full = {**os.environ, "NIMBLE_TPU_MERGE_TIMEOUT_S": str(MERGE_TIMEOUT_S), **env,
+            "NIMBLE_TPU_RUNLOG": base + ".jsonl"}
+    with open(base + ".out", "w") as out:
+        p = subprocess.Popen([sys.executable, "-c", PROC_RUNNER, "align", *args, "--device", "cuda"], cwd=REPO,
+                             env=full, stdout=out, stderr=subprocess.STDOUT)
+    _PROCS.append(p)
+    return tag, p, base + ".jsonl", base + ".out", time.perf_counter()
+
+
+def proc_output(proc) -> str:
+    with open(proc[3]) as f:
+        return f.read()
+
+
+def wait_procs(procs, rcs):
+    """Wait for start_align processes together. Each must exit with its
+    code in `rcs` (9: killed); the first that does not, or a deadline past
+    PROC_DEADLINE_S, kills the rest and raises with its output. Returns each
+    process's seconds from its launch to its exit."""
+    walls = [None] * len(procs)
+    deadline = time.perf_counter() + PROC_DEADLINE_S + 30
+    while None in walls:
+        for i, (tag, p, _, _, t0) in enumerate(procs):
+            if walls[i] is None and p.poll() is not None:
+                walls[i] = time.perf_counter() - t0
+                if p.returncode != rcs[i]:
+                    for q in procs:
+                        if q[1].poll() is None:
+                            q[1].kill()
+                    raise AssertionError(f"{tag}: exited {p.returncode}, not {rcs[i]}:\n"
+                                         f"{proc_output(procs[i])[-6000:]}")
+        if time.perf_counter() > deadline:
+            for q in procs:
+                if q[1].poll() is None:
+                    q[1].kill()
+            raise AssertionError("processes still running at the deadline: " + "; ".join(
+                f"{q[0]}:\n{proc_output(q)[-3000:]}" for q, w in zip(procs, walls) if w is None))
+        time.sleep(0.05)
+    return walls
+
+
+def run_events(log: str):
+    with open(log) as f:
+        return [json.loads(ln) for ln in f if ln.strip()]
+
+
+def check_align(proc, path: str, kernels=(), rc: int = 0):
+    """A start_align process that exited `rc`: every engine it built must
+    take `path`, and one that ended (rc 0) must have launched each of
+    `kernels`. Returns (output, RESULT dict or None, run log events)."""
+    tag, _, log, _, _ = proc
+    out = proc_output(proc)
+    events = run_events(log)
+    paths = [e["path"] for e in events if e["event"] == "engine"]
+    if not paths or any(x != path for x in paths):
+        raise AssertionError(f"{tag}: the engines took the {paths} paths, not {path}")
+    res = None
+    if rc == 0:
+        res = json.loads(re.search(r"^RESULT (.*)$", out, re.M).group(1))
+        for k in kernels:
+            if res["launches"][k] <= 0:
+                raise AssertionError(f"{tag}: the process never launched the {k} kernel")
+    return out, res, events
+
+
+def same_file(label: str, got: str, want: str) -> int:
+    with open(got, "rb") as f, open(want, "rb") as g:
+        if f.read() != g.read():
+            raise AssertionError(f"{label}: {got} differs from {want}")
+    return tsv_rows(got)
+
+
+def no_leftovers(label: str, d: str) -> None:
+    left = sorted(f for f in os.listdir(d) if ".shard" in f or ".progress.json" in f)
+    if left:
+        raise AssertionError(f"{label}: left {left} behind")
+
+
+def resume_here(label: str, args, n: int, kernels, path: str, want_from: int, env=None):
+    """`align --resume` in this process through drive(), so its launches
+    count; it must print `Resuming from read want_from`. Returns (launch
+    counts, the run log's `resume` event)."""
+    log = os.environ["NIMBLE_TPU_RUNLOG"]
+    seen = os.path.getsize(log)
+    buf = io.StringIO()
+    try:
+        with environ(env or {}), contextlib.redirect_stdout(buf):
+            _, _, counts = drive(label, [*args, "--resume"], n, kernels, path=path)
+    finally:
+        sys.stdout.write(buf.getvalue())
+    m = re.search(r"Resuming from read (\d+)", buf.getvalue())
+    if not m or int(m.group(1)) != want_from:
+        raise AssertionError(f"{label}: printed {m and m.group(0)!r}, not resuming from read {want_from}")
+    with open(log) as f:
+        f.seek(seen)
+        ev = [e for e in map(json.loads, filter(str.strip, f)) if e["event"] == "resume"]
+    say("resume", f"{label}: resumed from read {want_from}, the fast-forward to it "
+        f"{ev[-1]['fast_forward_s']:.3f} s after the first batch")
+    return counts, ev[-1]
+
+
+def kill_at(label: str, args, spans: int, path: str, d: str, env=None):
+    """One run killed after `spans` emitted spans; its sidecar must survive
+    and name the spans before the last. Returns the sidecar."""
+    out = args[args.index("--output") + 1]
+    proc = start_align(label, args, {"KILL_AFTER_EMITS": str(spans), **(env or {})}, d)
+    wall, = wait_procs([proc], [9])
+    check_align(proc, path, rc=9)
+    prog_path = out + ".progress.json"
+    with open(prog_path) as f:
+        prog = json.load(f)
+    if prog["reads_done"] != (spans - 1) * prog["span"]:
+        raise AssertionError(f"{label}: the sidecar names read {prog['reads_done']}, not {spans - 1} spans "
+                             f"of {prog['span']}")
+    say("resume", f"{label}: killed (exit 9) after {spans} spans, {wall:.2f} s from launch; its sidecar names "
+        f"{prog['reads_done']} reads, span {prog['span']}")
+    return prog
+
+
+def decode_shard_lines(label: str, outs, n: int) -> None:
+    for p, out in enumerate(outs):
+        m = re.search(r"Decode shard: parsed (\d+) skipped (\d+) records", out)
+        if not m:
+            raise AssertionError(f"{label}: process {p} printed no Decode shard line")
+        parsed, skipped = int(m.group(1)), int(m.group(2))
+        say("world", f"{label}: process {p}: {m.group(0)} ({parsed / n:.3f} parsed)")
+        if parsed + skipped != n or parsed > 0.7 * n:
+            raise AssertionError(f"{label}: process {p} parsed {parsed} and skipped {skipped} of {n}")
+
+
+def world(label: str, args, n_proc: int, n: int, want: str, path: str, kernels, d: str, env=None,
+          kill0: int = 0):
+    """A world of n_proc processes of `align`, launched together; process 0
+    killed after kill0 of its spans when kill0 > 0 (then no merge yet).
+    Otherwise the merged TSV must equal `want` and no shard file may stay.
+    Returns (outputs, RESULT dicts, the world's wall: first launch to
+    process 0's exit, process 0's run log events)."""
+    out = args[args.index("--output") + 1]
+    procs = [start_align(f"{label} p{p}", args, {"NIMBLE_TPU_NUM_PROCS": str(n_proc), "NIMBLE_TPU_PROC_ID": str(p),
+                                                 **(env or {}), **({"KILL_AFTER_EMITS": str(kill0)} if kill0 and p == 0
+                                                                   else {})}, d)
+             for p in range(n_proc)]
+    rcs = [9 if kill0 and p == 0 else 0 for p in range(n_proc)]
+    wall = wait_procs(procs, rcs)[0]  # process 0 was launched first
+    results = [check_align(pr, path, kernels, rc) for pr, rc in zip(procs, rcs)]
+    if kill0:
+        return [r[0] for r in results], [r[1] for r in results], wall, results[0][2]
+    rows = same_file(f"{label}: the merged TSV", out, want)
+    no_leftovers(label, os.path.dirname(out))
+    merged = [e for e in results[0][2] if e["event"] == "merge"]
+    if not merged:
+        raise AssertionError(f"{label}: process 0 logged no merge event")
+    m = merged[-1]
+    say("world", f"{label}: {n_proc} processes, merged TSV == {os.path.basename(want)} ({rows} rows), no shard "
+        f"left; world wall {wall:.2f} s (first launch to process 0's exit), merge: {m['bytes'] / 1e6:.1f} MB "
+        f"copied in {m['copy_s']:.3f} s after {m['barrier_s']:.3f} s at the barrier; "
+        + "; ".join(f"p{p}: {r[1]['wall_s']:.2f} s inside main, launches {r[1]['launches']}"
+                    for p, r in enumerate(results)))
+    return [r[0] for r in results], [r[1] for r in results], wall, results[0][2]
+
+
+def phase_resume(work: str, lib: str, fq: str, bam: str, pout: str, se_wall: float, wlib: str, wfq: str):
+    """Phase 20: `align --resume` after a hard kill and worlds of processes
+    (NIMBLE_TPU_NUM_PROCS / NIMBLE_TPU_PROC_ID) on the card, each output
+    byte-identical to the uninterrupted run of an earlier phase: (a) kill
+    and resume on phase 5's reads; (b) a two-process world on them, beside
+    one process alone; (c) that world with process 0 killed and resumed;
+    (d) a two-process world on phase 5's BAM pairs; (e) a two-process
+    world on the 20k library (gband); (f) kill and resume
+    under `--probe mono` on N_MONO_CUT reads. Resumes run in this process
+    (their launches count); killed runs and world processes run in
+    subprocesses. Returns the summed launch counts of the in-process runs."""
+    t_phase = time.perf_counter()
+    d = os.path.join(work, "p20")
+    os.makedirs(d)
+    cores = os.cpu_count() or 1
+    half = str(max(1, cores // 2))
+    se_want = os.path.join(work, "se", "out.tsv")
+    counts = []
+    try:
+        # (a) kill after KILL_SPANS spans, then --resume here
+        a_out = os.path.join(d, "a.tsv")
+        a_args = ["--reference", lib, "--output", a_out, "--input", fq, "-c", str(cores)]
+        prog = kill_at("(a) group single-end reads", a_args, KILL_SPANS, "group", d)
+        span = prog["span"]
+        c, _ = resume_here("(a) resume", a_args, N_READS, ["kmer_keys"], "group", prog["reads_done"])
+        counts.append(c)
+        rows = same_file("(a) resumed TSV", a_out, se_want)
+        no_leftovers("(a)", d)
+        say("resume", f"(a) resumed TSV == phase 5's se/out.tsv ({rows} rows), no sidecar left")
+
+        # (b) one process alone, then a world of two, -c halved, reader
+        # batches of half a span (each inside one span, so skippable)
+        wenv = {"NIMBLE_TPU_READER_BATCH": str(span // 2)}
+        single_out = os.path.join(d, "b_single.tsv")
+        proc = start_align("(b) one process", ["--reference", lib, "--output", single_out, "--input", fq,
+                                               "-c", str(cores)], {}, d)
+        single_wall, = wait_procs([proc], [0])
+        _, res, _ = check_align(proc, "group", ["kmer_keys"])
+        same_file("(b) one process's TSV", single_out, se_want)
+        b_args = ["--reference", lib, "--output", os.path.join(d, "b.tsv"), "--input", fq, "-c", half]
+        outs, _, wall, _ = world("(b) world", b_args, 2, N_READS, se_want, "group", ["kmer_keys"], d, wenv)
+        decode_shard_lines("(b) world", outs, N_READS)
+        say("world", f"(b) {N_READS} reads: world of 2 (-c {half} each) {wall:.2f} s, one process in a subprocess "
+            f"{single_wall:.2f} s ({res['wall_s']:.2f} s inside main), phase 5's run in this process "
+            f"{se_wall:.2f} s; one process / world {single_wall / wall:.3f}")
+
+        # (c) the world of (b), process 0 killed after WORLD_KILL_SPANS of
+        # its spans, then resumed here (it merges)
+        c_out = os.path.join(d, "c.tsv")
+        c_args = ["--reference", lib, "--output", c_out, "--input", fq, "-c", half]
+        world("(c) world, process 0 killed", c_args, 2, N_READS, se_want, "group", ["kmer_keys"], d, wenv,
+              kill0=WORLD_KILL_SPANS)
+        with open(c_out + ".shard0.progress.json") as f:
+            p0 = json.load(f)
+        # process 0 owns spans 0, 2, 4, ...: its checkpoint sits after the
+        # last of them before the one it was killed in
+        want_from = (2 * (WORLD_KILL_SPANS - 2) + 1) * span
+        if p0["reads_done"] != want_from:
+            raise AssertionError(f"(c) process 0's sidecar names read {p0['reads_done']}, not {want_from}")
+        c, _ = resume_here("(c) process 0 resumed", c_args, N_READS, ["kmer_keys"], "group", want_from,
+                           {**wenv, "NIMBLE_TPU_NUM_PROCS": "2", "NIMBLE_TPU_PROC_ID": "0"})
+        counts.append(c)
+        rows = same_file("(c) merged TSV", c_out, se_want)
+        no_leftovers("(c)", d)
+        say("world", f"(c) merged TSV after process 0's resume == phase 5's se/out.tsv ({rows} rows), no shard left")
+
+        # (d) a world of two on the BAM pairs: the BAM reader has no
+        # set_skip, ownership alone shards the work
+        d_args = ["--reference", lib, "--output", os.path.join(d, "d.tsv"), "--input", bam, "-c", half]
+        world("(d) BAM pairs world", d_args, 2, N_PAIRS, pout, "group", ["kmer_keys"], d)
+
+        # (e) the 20k library (gband): a world of two. Its kill and resume
+        # (about 46 s of the script on an H100 host) is left out for the time
+        # limit; tests/test_torch_resume.py holds gband resumes on the CPU
+        wide_want = os.path.join(work, "wide", "out_se.tsv")
+        # the span of phase 11's single-end run on the card: the largest
+        # gband chunk in the run log (pairs halve it, the CPU caps it)
+        gband_span = max(e["chunk_size"] for e in run_events(os.environ["NIMBLE_TPU_RUNLOG"])
+                         if e["event"] == "engine" and e["path"] == "gband")
+        ew_args = ["--reference", wlib, "--output", os.path.join(d, "e_world.tsv"), "--input", wfq, "-c", half]
+        outs = world("(e) gband world", ew_args, 2, N_WIDE_READS, wide_want, "gband", WIDE_KERNELS, d,
+                     {"NIMBLE_TPU_READER_BATCH": str(gband_span // 2)})[0]
+        decode_shard_lines("(e) gband world", outs, N_WIDE_READS)
+
+        # (f) --probe mono on the first N_MONO_CUT reads: uninterrupted,
+        # killed, resumed
+        cut = gz_head(fq, os.path.join(d, f"reads_{N_MONO_CUT}.fastq.gz"), N_MONO_CUT)
+        f_full = os.path.join(d, "f_full.tsv")
+        _, _, c = drive("(f) mono, uninterrupted", ["--reference", lib, "--output", f_full, "--input", cut,
+                                                    "-c", str(cores), *MONO], N_MONO_CUT, ["kmer_keys", "mono_probe"],
+                        path="mono")
+        counts.append(c)
+        f_out = os.path.join(d, "f.tsv")
+        f_args = ["--reference", lib, "--output", f_out, "--input", cut, "-c", str(cores), *MONO]
+        prog = kill_at("(f) mono single-end reads", f_args, MONO_KILL_SPANS, "mono", d)
+        c, _ = resume_here("(f) resume (--probe mono)", f_args, N_MONO_CUT, ["kmer_keys", "mono_probe"], "mono",
+                           prog["reads_done"])
+        counts.append(c)
+        rows = same_file("(f) resumed TSV", f_out, f_full)
+        no_leftovers("(f)", d)
+        say("resume", f"(f) resumed mono TSV == the uninterrupted mono run ({rows} rows), no sidecar left")
+    finally:
+        for p in _PROCS:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    say("resume", f"phase 20 in {time.perf_counter() - t_phase:.1f} s")
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA card",
@@ -1434,7 +1786,7 @@ def main() -> int:
         lib, fq = phase_data(work)
         kk_err, kk_ms, kk_plain, kk_bound = phase_kernel(lib, fq)
         phase_goldens(work)
-        bam, pout, group_counts = phase_main_path(work, name, lib, fq)
+        bam, pout, se_wall, group_counts = phase_main_path(work, name, lib, fq)
         nm1_lib, nm1_fq = phase_mono_data(work, lib)
         mp_err, mp_ms, mp_plain, mp_bound = phase_mono_kernel(lib, fq, nm1_lib, nm1_fq)
         mono_counts = phase_mono_main(work, lib, fq, bam, nm1_lib, nm1_fq)
@@ -1448,18 +1800,20 @@ def main() -> int:
         sref, sfq, scmp, sbam = phase_stacked_data(work)
         st_err = phase_stacked_kernels(sref, sfq)
         stacked_counts = phase_stacked(work, sref, sfq, scmp, sbam)
+        resume_counts = phase_resume(work, lib, fq, bam, pout, se_wall, wlib, wfq)
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     # no single PyTorch call computes any of these functions: library_ms null
     # times and bounds at each kernel's main path; launches summed over
     # every path's runs, errors over every check
-    runs = (group_counts, mono_counts, wide_counts, cls_counts, stacked_counts)
+    runs = (group_counts, mono_counts, wide_counts, cls_counts, stacked_counts, resume_counts)
     kernels = [
         ("kmer_keys", "nimble_tpu/align/kernels.py:157", sum(c["kmer_keys"] for c in runs),
          max(kk_err, cls_err, st_err), kk_ms, kk_plain, kk_bound),
-        ("mono_probe", "nimble_tpu/align/kernels.py:273", mono_counts["mono_probe"] + stacked_counts["mono_probe"],
+        ("mono_probe", "nimble_tpu/align/kernels.py:273",
+         mono_counts["mono_probe"] + stacked_counts["mono_probe"] + resume_counts["mono_probe"],
          max(mp_err, st_err), mp_ms, mp_plain, mp_bound),
         ("band_tree_expand", "nimble_tpu/align/kernels.py:394",
-         wide_counts["band_tree_expand"] + cls_counts["band_tree_expand"],
+         wide_counts["band_tree_expand"] + cls_counts["band_tree_expand"] + resume_counts["band_tree_expand"],
          max(bt_err, *(b[0] for b in cls_bands)), bt_ms, bt_plain, bt_bound),
     ]
     print(json.dumps({"kernels": [

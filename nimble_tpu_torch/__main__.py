@@ -1,13 +1,15 @@
 """nimble_tpu_torch CLI — the same subcommand surface as nimble_tpu's.
 
 `align` runs the port on an explicit `--device` (cuda by default; cpu runs
-the plain torch twins). `report` runs the exact host engine, or with
-`--device [cuda|cpu]` the UMI pipeline as torch segment ops (bare
-`--device` is cuda, as the reference's flag runs on its accelerator).
-`generate`, `fastq-to-bam`, `plot`, `index` and `download` run the port's
-own copies of the reference's host modules; nothing here imports
-nimble_tpu. `report --distributed` and `index --warm` are not ported yet
-and exit non-zero naming their ROADMAP item.
+the plain torch twins), resumes an interrupted run with `--resume`, and runs
+as one process of a world under NIMBLE_TPU_NUM_PROCS / NIMBLE_TPU_PROC_ID.
+`report` runs the exact host engine, or with `--device [cuda|cpu]` the UMI
+pipeline as torch segment ops (bare `--device` is cuda, as the reference's
+flag runs on its accelerator). `generate`, `fastq-to-bam`, `plot`, `index`
+and `download` run the port's own copies of the reference's host modules;
+nothing here imports nimble_tpu. `align --mesh`, a JAX_COORDINATOR_ADDRESS,
+`report --distributed` and `index --warm` are not ported yet and exit
+non-zero naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -65,8 +67,11 @@ def main(argv=None) -> int:
         help="Reads per device step (0 = auto-size from the device "
              "transient budget; see align.engine.auto_chunk_size).",
     )
-    align_parser.add_argument("--resume", action="store_true", default=False,
-                              help="Not ported (ROADMAP Queue 1 item 4).")
+    align_parser.add_argument(
+        "--resume", action="store_true", default=False,
+        help="Continue an interrupted run from its <output>.progress.json "
+             "sidecar (in a world, each process from its own shard's).",
+    )
     align_parser.add_argument("--mesh", type=str, default="",
                               help="Not ported (ROADMAP Queue 1 item 8).")
     align_parser.add_argument(
@@ -145,7 +150,7 @@ def main(argv=None) -> int:
         from nimble_tpu_torch.device import resolve_device
 
         try:
-            refuse_unported(mesh=args.mesh, resume=args.resume)
+            refuse_unported(mesh=args.mesh)
         except NotImplementedError as e:
             return _unported(str(e))
         return align_files(
@@ -156,6 +161,7 @@ def main(argv=None) -> int:
             strand_filter=args.strand_filter,
             chunk_size=args.chunk_size or None,
             max_len=args.max_read_length,
+            resume=args.resume,
             trim=args.trim,
             num_cores=args.num_cores,
             probe=args.probe,

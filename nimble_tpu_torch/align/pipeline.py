@@ -1,5 +1,5 @@
 """Host-side `align` pipeline for the port: read streaming, emission,
-several libraries.
+several libraries, checkpoint/resume and multi-process worlds.
 
 Copied from nimble_tpu/align/pipeline.py (which cannot be imported without
 jax) with what the group, gband and mono paths need, and driving the torch
@@ -16,19 +16,27 @@ tables can be placed. The stack is opt-in because on the H100 it has lost
 to the per-library engines on every workload measured (PERF.md, section 5):
 its merged table is far larger and the libraries' tails still run once each.
 
-The port runs one process on one device. It refuses the reference's
-`--mesh` and multi-process worlds (ROADMAP Queue 1 item 8) and `--resume`
-(item 4).
+Checkpoint/resume and worlds are the reference's: a progress sidecar
+(`<output>.progress.json`, or `<output>.shardP.progress.json` in a world)
+records the read cursor and each output's bytes after every emitted span,
+and `--resume` truncates at it and continues. NIMBLE_TPU_NUM_PROCS /
+NIMBLE_TPU_PROC_ID start a world of independent processes that own spans
+round-robin and write headerless shards, which process 0 splices back into
+reader order (_merge_shards). The port records the span in every sidecar
+and shard meta, and refuses a resume or a merge whose spans differ. It
+refuses `--mesh` and JAX_COORDINATOR_ADDRESS (ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
+import json
 import os
 import queue
 import sys
 import threading
+import time
 from dataclasses import dataclass
 from itertools import chain
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -251,11 +259,15 @@ class LibraryRunner:
     emit: EmitConfig
     output_path: str
     trim: Tuple[int, float] = (0, 0.0)  # (target_length, strictness); (0, _) = off
+    final_path: str = ""  # in a world: the merged destination (output_path
+    # then names this process's headerless shard file)
     _file: object = None
+    rows_written: int = 0
 
-    def open(self):
+    def open(self, header: bool = True):
         self._file = open(self.output_path, "wb")
-        self._file.write(("\t".join(TSV_HEADER) + "\n").encode())
+        if header:
+            self._file.write(("\t".join(TSV_HEADER) + "\n").encode())
 
     def close(self):
         if self._file:
@@ -310,6 +322,7 @@ class LibraryRunner:
                 pos2=pos_arr[:, 1] if pos_arr is not None else None,
             )
             self._file.write(buf)
+            self.rows_written += n_kept
             return n_kept
 
         lines = []
@@ -323,6 +336,7 @@ class LibraryRunner:
                 f"{pos1}\t{pos2}\t{f1[i]}\t{f2[i]}\t{gn}\n"
             )
         self._file.write("".join(lines).encode())
+        self.rows_written += len(lines)
         return len(lines)
 
 
@@ -353,7 +367,14 @@ class SpanFeeder:
     every dispatch except the last is a full span whatever the reader's
     batch size. Per-read metadata (cbs/umis/poss/gns/names) rides along; the
     sparse N sidecar (`<mate>_nidx` row indices + `<mate>_nrows`) is offset
-    on merges and rebased on slices."""
+    on merges and rebased on slices.
+
+    A batch may arrive as a skip marker `{"skip": n}`: n records the reader
+    never parsed because every span they touch belongs to another process of
+    a world (io/threaded.py set_skip). A carved span that holds skipped
+    records comes out as `{"skip": span}` (such a span is never this
+    process's, by the skip predicate's construction), so span indices and
+    read cursors stay those of a run that decoded everything."""
 
     def __init__(self, span: int, paired: bool):
         self.span = span
@@ -361,9 +382,13 @@ class SpanFeeder:
         self.parts: List[dict] = []
         self.count = 0
 
+    @staticmethod
+    def _part_n(p: dict) -> int:
+        return p["skip"] if "skip" in p else p["r1_lens"].shape[0]
+
     def add(self, pb: dict) -> List[dict]:
         self.parts.append(pb)
-        self.count += pb["r1_lens"].shape[0]
+        self.count += self._part_n(pb)
         out = []
         while self.count >= self.span:
             out.append(self._take(self.span))
@@ -375,15 +400,21 @@ class SpanFeeder:
         need = want
         while need:
             p = self.parts[0]
-            n = p["r1_lens"].shape[0]
+            n = self._part_n(p)
             if n <= need:
                 taken.append(self.parts.pop(0))
                 need -= n
             else:
-                taken.append(self._slice(p, 0, need))
-                self.parts[0] = self._slice(p, need, n)
+                if "skip" in p:
+                    taken.append({"skip": need})
+                    self.parts[0] = {"skip": n - need}
+                else:
+                    taken.append(self._slice(p, 0, need))
+                    self.parts[0] = self._slice(p, need, n)
                 need = 0
         self.count -= want
+        if any("skip" in p for p in taken):
+            return {"skip": want}
         return self._merge(taken)
 
     def flush(self) -> Optional[dict]:
@@ -500,9 +531,11 @@ def _prefetch_iter(gen, depth: int = 3):
 
 def _make_batches(inputs: Sequence[str], is_bam: bool, batch_records: int,
                   max_len: int, num_cores: int):
-    """Reader batch iterator (dicts of r1_codes/r1_lens[, r2_*][, meta]):
-    native BAM with a prefetch thread, the threaded native FASTQ reader for
-    num_cores > 1, else the native or python single-threaded readers."""
+    """(reader batch iterator, reader object or None). Batches are dicts of
+    r1_codes/r1_lens[, r2_*][, meta]: native BAM with a prefetch thread, the
+    threaded native FASTQ reader for num_cores > 1 (returned as the reader
+    object too: its set_skip shards decode in a world, its stats count
+    what it parsed), else the native or python single-threaded readers."""
     from nimble_tpu_torch.io import native
 
     if is_bam:
@@ -514,25 +547,33 @@ def _make_batches(inputs: Sequence[str], is_bam: bool, batch_records: int,
                     inputs[0], batch_records=batch_records, max_len=max_len
                 ),
                 depth=INFLIGHT + 1,
-            )
+            ), None
         from nimble_tpu_torch.io.bam import iter_bam_batches
 
-        return iter_bam_batches(inputs[0], batch_records=batch_records, max_len=max_len)
+        return iter_bam_batches(inputs[0], batch_records=batch_records, max_len=max_len), None
     r2 = inputs[1] if len(inputs) == 2 else None
     if num_cores > 1 and native.available():
         from nimble_tpu_torch.io.threaded import ThreadedFastqReader
 
-        return iter(ThreadedFastqReader(
+        reader = ThreadedFastqReader(
             inputs[0], r2, batch_size=batch_records, max_len=max_len,
             num_threads=num_cores, prefetch=INFLIGHT + 1,
-        ))
+        )
+        return iter(reader), reader
     if native.available():
         from nimble_tpu_torch.io.native import NativeFastqReader
 
-        return iter(NativeFastqReader(inputs[0], r2, batch_size=batch_records, max_len=max_len))
+        return iter(NativeFastqReader(inputs[0], r2, batch_size=batch_records, max_len=max_len)), None
     from nimble_tpu_torch.io.fastq import FastqReader
 
-    return iter(FastqReader(inputs[0], r2, batch_size=batch_records, max_len=max_len))
+    return iter(FastqReader(inputs[0], r2, batch_size=batch_records, max_len=max_len)), None
+
+
+def _slice_reader_batch(batch: dict, start: int) -> dict:
+    """Tail [start:] of a reader batch dict (arrays and metadata lists),
+    taken before pack_batch so the packed wire's N sidecar never needs
+    rebasing."""
+    return {k: v[start:] if v is not None else None for k, v in batch.items()}
 
 
 def _build_engines(runners: List[LibraryRunner], device: torch.device,
@@ -582,17 +623,111 @@ def _build_engines(runners: List[LibraryRunner], device: torch.device,
     return None
 
 
-def refuse_unported(mesh: str = "", resume: bool = False) -> None:
+def refuse_unported(mesh: str = "") -> None:
     """Raise NotImplementedError for `align` options the port has not taken
     over from the reference, naming the ROADMAP item that will."""
     if mesh:
         raise NotImplementedError("--mesh: multi-GPU align is ROADMAP Queue 1 item 8")
-    if resume:
-        raise NotImplementedError("--resume is not ported (ROADMAP Queue 1 item 4)")
-    if os.environ.get("JAX_COORDINATOR_ADDRESS") or int(os.environ.get("NIMBLE_TPU_NUM_PROCS", "1") or 1) > 1:
+    if os.environ.get("JAX_COORDINATOR_ADDRESS"):
         raise NotImplementedError(
-            "multi-process align worlds are ROADMAP Queue 1 item 8 "
-            "(unset JAX_COORDINATOR_ADDRESS / NIMBLE_TPU_NUM_PROCS)")
+            "JAX_COORDINATOR_ADDRESS: coordinated multi-host align is ROADMAP "
+            "Queue 1 item 8 (a world of independent processes runs under "
+            "NIMBLE_TPU_NUM_PROCS / NIMBLE_TPU_PROC_ID)")
+
+
+def _align_world() -> Tuple[int, int]:
+    """(process_id, num_processes) of a multi-process `align`: the
+    NIMBLE_TPU_NUM_PROCS / NIMBLE_TPU_PROC_ID pair drives independent
+    processes over a shared filesystem. Default: one process."""
+    n = int(os.environ.get("NIMBLE_TPU_NUM_PROCS", "1") or 1)
+    if n <= 1:
+        return 0, 1
+    pid = int(os.environ.get("NIMBLE_TPU_PROC_ID", "0") or 0)
+    if not 0 <= pid < n:
+        raise ValueError(f"NIMBLE_TPU_PROC_ID {pid} out of range for {n} procs")
+    return pid, n
+
+
+def _write_shard_meta(output: str, pid: int, span_meta, total: int, span: Optional[int]) -> None:
+    """Persist this shard's span-order byte accounting and its span, then
+    the `.done` sentinel (the merge barrier; written LAST so a visible
+    sentinel implies a complete meta)."""
+    with open(f"{output}.shard{pid}.meta.json", "w") as f:
+        json.dump({"spans": span_meta, "total": total, "span": span}, f)
+    with open(f"{output}.shard{pid}.done", "w"):
+        pass
+
+
+def _copy_bytes(src, dst, n: int) -> None:
+    """Copy exactly n bytes from src to dst, 16 MiB at a time."""
+    while n:
+        buf = src.read(min(n, 1 << 24))
+        if not buf:
+            raise ValueError(f"shard {src.name} ends {n} bytes short of its meta")
+        dst.write(buf)
+        n -= len(buf)
+
+
+def _merge_shards(output: str, final_paths: Sequence[str], world_n: int) -> int:
+    """Process 0's merge: wait for every shard's `.done` sentinel on the
+    shared filesystem, then splice shard files back into reader order.
+
+    Each process owns spans round-robin by span index and its shard file
+    holds its spans' rows contiguously in ascending index order, so the
+    merged file (header + span byte ranges in global index order) is
+    byte-identical to a single-process run. The shards must agree on the
+    span and hold every span index once, or nothing is merged (ValueError).
+    The copy streams. Returns the merged read total."""
+    from nimble_tpu_torch.observability import runlog
+
+    t0 = time.perf_counter()
+    timeout = float(os.environ.get("NIMBLE_TPU_MERGE_TIMEOUT_S", "3600"))
+    deadline = time.monotonic() + timeout
+    for p in range(world_n):
+        sentinel = f"{output}.shard{p}.done"
+        while not os.path.exists(sentinel):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"merge barrier: {sentinel} never appeared")
+            time.sleep(0.2)
+
+    metas = []
+    for p in range(world_n):
+        with open(f"{output}.shard{p}.meta.json") as f:
+            metas.append(json.load(f))
+    spans = {p: m["span"] for p, m in enumerate(metas) if m.get("span") is not None}
+    if len(set(spans.values())) > 1:
+        raise ValueError("the world's processes disagree on the span (reads a dispatch), "
+                         f"so their shards cannot be merged: {spans} by process "
+                         "(give every process the same --device and --chunk-size)")
+    # (span_idx, owner, bytes_by_final_path), globally ordered
+    schedule = sorted((idx, p, by_lib) for p, m in enumerate(metas) for idx, by_lib in m["spans"])
+    if [e[0] for e in schedule] != list(range(len(schedule))):
+        raise ValueError(f"the shards' span indices are not 0..{len(schedule) - 1} once each")
+    total = sum(m["total"] for m in metas)
+    t_copy = time.perf_counter()
+    for fp in final_paths:
+        shard_files = [open(f"{fp}.shard{p}", "rb") for p in range(world_n)]
+        try:
+            with open(fp, "wb") as out:
+                out.write(("\t".join(TSV_HEADER) + "\n").encode())
+                for _idx, p, by_lib in schedule:
+                    _copy_bytes(shard_files[p], out, by_lib.get(fp, 0))
+        except BaseException:
+            if os.path.exists(fp):
+                os.remove(fp)  # no partial merged file
+            raise
+        finally:
+            for f in shard_files:
+                f.close()
+    for fp in final_paths:
+        for p in range(world_n):
+            os.remove(f"{fp}.shard{p}")
+    for p in range(world_n):
+        os.remove(f"{output}.shard{p}.meta.json")
+        os.remove(f"{output}.shard{p}.done")
+    runlog().event("merge", barrier_s=t_copy - t0, copy_s=time.perf_counter() - t_copy,
+                   bytes=sum(os.path.getsize(fp) for fp in final_paths))
+    return total
 
 
 def align_files(
@@ -604,13 +739,15 @@ def align_files(
     chunk_size: Optional[int] = None,
     max_len: int = 0,
     batch_records: Optional[int] = None,
+    resume: bool = False,
     trim: str = "",
     num_cores: int = 1,
     probe: str = "group",
 ) -> int:
     """The `align` subcommand on `device`: 1-2 FASTQs or 1 BAM against a
     comma-separated library list, one output TSV per library. Returns a
-    process exit code (nonzero on reader/engine failure).
+    process exit code (nonzero on reader/engine failure, on a refused
+    resume and on a failed merge).
 
     probe "group" (the default) probes one (k+g-1)-mer per g read windows;
     "mono" probes every k-window, the reference-faithful per-k-mer
@@ -620,13 +757,29 @@ def align_files(
     max_len <= 0 (the default) sizes the packed read width from the first
     batch's longest read (rounded up to a multiple of 16, at least 32,
     capped at 256; longer reads later trigger an engine rebuild at the wider
-    size). An explicit max_len is used as-is and truncates longer reads.
+    size, the span staying fixed). An explicit max_len is used as-is and
+    truncates longer reads.
 
     A feeder thread decodes and 2-bit packs reads (io/packing.py) into
-    spans; the main thread dispatches spans to the device, keeping up to
-    INFLIGHT in flight; an emission thread copies results back,
-    repairs reads shorter than k+g-1 on the host (host_probe.py) and writes
-    the TSV rows."""
+    spans of the engine's chunk; the main thread dispatches spans to the
+    device, keeping up to INFLIGHT in flight; an emission thread copies
+    results back, repairs reads shorter than k+g-1 on the host
+    (host_probe.py), writes the TSV rows and then the progress sidecar.
+
+    Checkpoint/resume: after every emitted span the sidecar
+    (`<output>.progress.json`) records the read cursor, each output's rows
+    and bytes, and the span (atomic replace). With resume=True a run
+    truncates each output at its recorded bytes, fast-forwards the reader to
+    the cursor and appends; a sidecar without `reads_done` or with another
+    span is refused (exit 1).
+
+    Worlds (NIMBLE_TPU_NUM_PROCS = N, NIMBLE_TPU_PROC_ID = 0..N-1): each
+    process aligns the spans it owns (span index mod N) into a headerless
+    `<output>.shardP`, checkpoints to `<output>.shardP.progress.json` with
+    each span's bytes, and writes its shard meta; process 0 merges the
+    shards into reader order (_merge_shards), byte-identical to one
+    process's run. With -c the threaded reader parses only the batches
+    whose spans this process owns (set_skip)."""
     from nimble_tpu_torch.io.packing import pack_batch
     from nimble_tpu_torch.observability import Throughput, runlog
 
@@ -636,6 +789,9 @@ def align_files(
         raise ValueError(f"--probe must be 'group' or 'mono', got {probe!r}")
     group_g = 0 if probe == "mono" else None
     log = runlog()
+    world_pid, world_n = _align_world()
+    if world_n > 1:
+        log.event("world", pid=world_pid, n=world_n)
     library_list = reference.split(",")
     is_bam = os.path.splitext(inputs[0])[-1].lower() == ".bam"
     paired = (len(inputs) == 2) or is_bam
@@ -667,22 +823,90 @@ def align_files(
             elif runner.config.trim_spec() is not None:
                 runner.trim = runner.config.trim_spec()
             runners.append(runner)
-    for r in runners:
-        r.open()
+    if world_n > 1:
+        # each process writes the spans it owns into a headerless shard;
+        # process 0 splices them back into reader order
+        for r in runners:
+            r.final_path = r.output_path
+            r.output_path = f"{r.output_path}.shard{world_pid}"
 
-    reader_batch = batch_records or (1 << 17)
-    total = 0
+    # one sidecar per process: a killed process of a world resumes its own
+    # spans while the other shards stand
+    progress_path = output + (".progress.json" if world_n == 1 else f".shard{world_pid}.progress.json")
+    reads_done = 0
+    resumed_total = 0
+    resumed_span = None
+    resumed_spans: List = []
+    if resume and os.path.exists(progress_path):
+        with open(progress_path) as f:
+            prog = json.load(f)
+        if "reads_done" not in prog:
+            print("progress sidecar predates the packed pipeline; restart without --resume",
+                  file=sys.stderr)
+            return 1
+        reads_done = prog["reads_done"]
+        resumed_total = prog.get("total_done", 0)
+        resumed_span = prog.get("span")  # absent in the reference's sidecars
+        resumed_spans = [(idx, by_lib) for idx, by_lib in prog.get("spans", [])]
+        for r in runners:
+            byte_off = prog.get("bytes_written", {}).get(r.output_path)
+            if os.path.exists(r.output_path) and byte_off is not None:
+                os.truncate(r.output_path, byte_off)  # drop the rows after the checkpoint
+            r.rows_written = prog.get("rows_written", {}).get(r.output_path, 0)
+        print(f"Resuming from read {reads_done}")
+        for r in runners:
+            r._file = open(r.output_path, "ab")
+    else:
+        for r in runners:
+            r.open(header=world_n == 1)
+
+    span = None
+    checkpoints = [0, 0.0]  # sidecar writes and their seconds (the run log's `checkpoints`)
+    fast_forward_s = [0.0]  # the feeder's seconds to reach a resumed cursor
+
+    def save_progress(done_reads, spans=None, total_done=0):
+        t0 = time.perf_counter()
+        offsets = {}
+        for r in runners:
+            r._file.flush()
+            offsets[r.output_path] = r._file.tell()
+        payload = {
+            "reads_done": done_reads,
+            "rows_written": {r.output_path: r.rows_written for r in runners},
+            "bytes_written": offsets,
+            "span": span,
+        }
+        if world_n > 1:
+            payload["spans"] = spans or []
+            payload["total_done"] = total_done
+        tmp = progress_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(payload, f)
+        os.replace(tmp, progress_path)  # atomic: a kill never leaves half a sidecar
+        checkpoints[0] += 1
+        checkpoints[1] += time.perf_counter() - t0
+
+    reader_batch = batch_records or int(os.environ.get("NIMBLE_TPU_READER_BATCH", "0") or 0) or (1 << 17)
+    total = resumed_total if world_n > 1 else 0
+    span_meta: List[Tuple[int, Dict[str, int]]] = list(resumed_spans)
     tput = Throughput(log)
     failed = False
+    reader_obj = None
     emit_thread = None
     emitq: "queue.Queue" = queue.Queue(maxsize=INFLIGHT)
     emit_exc: List[BaseException] = []
     try:
-        batches = _make_batches(inputs, is_bam, reader_batch, reader_len, num_cores)
+        batches, reader_obj = _make_batches(inputs, is_bam, reader_batch, reader_len, num_cores)
         first = next(batches, None)
         if first is None:
             for r in runners:
                 r.close()
+            if os.path.exists(progress_path):
+                os.remove(progress_path)
+            if world_n > 1:
+                _write_shard_meta(output, world_pid, [], 0, None)
+                if world_pid == 0:
+                    _merge_shards(output, [r.final_path for r in runners], world_n)
             print(f"Aligned 0 read(-pair)s across {len(runners)} library(ies)")
             return 0
         if auto_len:
@@ -695,7 +919,24 @@ def align_files(
 
         stacked = _build_engines(runners, device, strand_filter, chunk_size, L, paired,
                                  batch_records, log)
+        # the span stays fixed for the whole run (a rebuild to a wider read
+        # length keeps it), so span indices, ownership and resume cursors
+        # are those of any run with the same span
         span = stacked.chunk_size if stacked is not None else runners[0].engine.chunk_size
+        if resumed_span is not None and resumed_span != span:
+            raise ValueError(
+                f"--resume: the progress sidecar {progress_path} was written with a span of "
+                f"{resumed_span} reads, this run's span is {span} (give the same --device and "
+                "--chunk-size as the interrupted run)")
+        if world_n > 1 and reader_obj is not None and hasattr(reader_obj, "set_skip"):
+            # decode sharding: parse only the batches that touch a span
+            # this process owns (inflate and newline cutting still run in
+            # every process)
+            def skip_pred(r0: int, r1: int) -> bool:
+                return all(s % world_n != world_pid
+                           for s in range(r0 // span, max(r0, r1 - 1) // span + 1))
+
+            reader_obj.set_skip(skip_pred)
         feeder = SpanFeeder(span, paired)
 
         def patch_short(r, out, sb):
@@ -731,8 +972,11 @@ def align_files(
                 log.event("short_read_patch", rows=patched)
 
         def finalize(entry):
+            # the span's rows are written before its checkpoint, so the
+            # sidecar only ever names spans whose bytes are complete
             nonlocal total
-            n, handles, sb = entry
+            reads_end, n, handles, sb, span_idx = entry
+            pre = [r._file.tell() for r in runners] if world_n > 1 else None
             if stacked is not None:
                 outs = stacked.collect_async(handles) or [None] * len(runners)
             else:
@@ -742,6 +986,11 @@ def align_files(
                 r.emit_out(out, sb)
             total += n
             tput.add(n)
+            if world_n > 1:
+                span_meta.append((span_idx, {r.final_path: r._file.tell() - p for r, p in zip(runners, pre)}))
+                save_progress(reads_end, spans=span_meta, total_done=total)
+            else:
+                save_progress(reads_end)
 
         def submit(sb):
             # per-runner trim applies to the lens only; windows beyond the
@@ -793,14 +1042,57 @@ def align_files(
             if emit_exc:
                 raise emit_exc[0]
 
+        # the dispatch cursor; spans before a resumed cursor never dispatch
+        # again, and every checkpoint but the last sits on a span boundary
+        cursor = reads_done
+        span_counter = reads_done // span
+
+        def dispatch(sb):
+            nonlocal cursor, span_counter
+            if "skip" in sb:  # a span this process never decoded: never its own
+                span_counter += 1
+                cursor += sb["skip"]
+                return
+            n = sb["r1_lens"].shape[0]
+            span_idx = span_counter
+            span_counter += 1
+            cursor += n
+            if world_n > 1 and span_idx % world_n != world_pid:
+                return  # another process owns this span
+            qput((cursor, n, submit(sb), sb, span_idx))
+
         # reader + 2-bit packing run on their own thread, behind the
         # dispatch loop; the bounded queue caps buffered spans
         spanq: "queue.Queue" = queue.Queue(maxsize=INFLIGHT + 1)
 
         def feed():
             try:
+                to_skip = reads_done  # the resume fast-forward
+                t_ff = time.perf_counter()
                 L_cur = L
                 for batch in chain([first], batches):
+                    if "skip" in batch:
+                        # a decode-sharded batch: counted like real records,
+                        # by the fast-forward and by the feeder
+                        n = batch["skip"]
+                        if to_skip >= n:
+                            to_skip -= n
+                            continue
+                        if to_skip:
+                            batch = {"skip": n - to_skip}
+                            to_skip = 0
+                        for sb in feeder.add(batch):
+                            spanq.put(("span", sb))
+                        continue
+                    n = batch["r1_lens"].shape[0]
+                    if to_skip >= n:
+                        to_skip -= n
+                        continue
+                    if to_skip:
+                        batch = _slice_reader_batch(batch, to_skip)
+                        to_skip = 0
+                    if reads_done and not fast_forward_s[0]:
+                        fast_forward_s[0] = time.perf_counter() - t_ff
                     m = int(np.max(batch["r1_lens"])) if batch["r1_lens"].size else 0
                     r2l = batch.get("r2_lens")
                     if paired and r2l is not None and r2l.size:
@@ -838,10 +1130,11 @@ def align_files(
                 stacked = _build_engines(runners, device, strand_filter, chunk_size,
                                          payload, paired, batch_records, log)
             else:
-                qput((payload["r1_lens"].shape[0], submit(payload), payload))
+                dispatch(payload)
         drain()
     except Exception:
-        # failures become a nonzero exit code, like the reference's
+        # failures become a nonzero exit code, like the reference's; the
+        # progress sidecar survives for `align --resume`
         import traceback
 
         traceback.print_exc()
@@ -856,6 +1149,25 @@ def align_files(
     if failed:
         print(f"align FAILED after {total} read(-pair)s", file=sys.stderr)
         return 1
+    if os.path.exists(progress_path):
+        os.remove(progress_path)
+    if world_n > 1:
+        _write_shard_meta(output, world_pid, span_meta, total, span)
+        if world_pid == 0:
+            try:
+                total = _merge_shards(output, [r.final_path for r in runners], world_n)
+            except (OSError, TimeoutError, ValueError) as e:
+                print(f"align: merging the world's shards failed: {e}", file=sys.stderr)
+                log.event("align_merge_failed", error=str(e))
+                return 1
+            log.event("align_merged", total=total, world_n=world_n)
+    log.event("checkpoints", n=checkpoints[0], wall_s=checkpoints[1])
+    if reads_done:
+        log.event("resume", reads_done=reads_done, fast_forward_s=fast_forward_s[0])
     log.event("align_done", total=total, **tput.final())
+    rstats = getattr(reader_obj, "stats", None)
+    if rstats and rstats.get("skipped_records"):
+        log.event("decode_shard", **rstats)
+        print(f"Decode shard: parsed {rstats['parsed_records']} skipped {rstats['skipped_records']} records")
     print(f"Aligned {total} read(-pair)s across {len(runners)} library(ies)")
     return 0
