@@ -6,7 +6,9 @@ and on the mono probe (`--probe mono`, `num_mismatches` 1) against narrow
 libraries; on the wide banded group path (gband) against the 20k-allele
 HLA/KIR library; and on the other wide paths (monocls with class bands or
 class bits, groupcls, the wide two-choice probe); and three libraries at
-once through the stacked engine — on one CUDA card, after building and
+once through the stacked engine — and every other subcommand and flag that
+runs in one process (`index --warm`, `report --device` and `--distributed`,
+resumes, worlds, the profiler) on one CUDA card, after building and
 checking their kernels:
 
   1. device: card, power limit, torch/CUDA versions; the native host IO
@@ -138,6 +140,27 @@ checking their kernels:
      log of its own whose `engine` events must name the path; every process
      that ends must launch its path's kernels; the resumes run in this
      process and their launches count.
+ 21. BASELINE config 4 as a user runs it, one process of the port's CLI per
+     subcommand, each timed from launch to exit, on phase 5's 262,144
+     tagged pairs and HLA-100: fastq-to-bam -> `index --warm 100 --paired`
+     on a fresh copy of the library, with the kernel library removed first
+     (so warm builds it, as on a fresh checkout; its printed parts shown)
+     -> align (its run log must show the index loaded and nothing built:
+     no index, gband sidecar or kernel library; its TSV == phase 5's) ->
+     report (== phase 5's counts) -> plot (left out, and said so, where
+     matplotlib is not installed, as on the H100 machine); beside it one
+     cold align on a
+     second fresh copy with no index and no kernel library (the same
+     bytes). The processes' kmer_keys launches count.
+ 22. NIMBLE_TPU_PROFILE: one in-process align of phase 8's 65,536 reads
+     under torch.profiler; its trace must name the kmer_keys kernel (the
+     symbol csrc/kmer_keys.cu launches) and its TSV equal the same run
+     unprofiled.
+ 23. `report --distributed 1` on the card, in-process, on phase 18's (b)
+     and (c) TSVs: --device's bytes, and within --device's near-tie rule
+     the host report's; rows/s beside --device's, the exchange's blk and
+     buffer rows. `--distributed 2` on the one card must exit nonzero,
+     naming the device count.
 On 13-17 the engine `align` builds must take the named path (the run log's
 `engine` event), kmer_keys == its plain version at the arguments it passes
 for the first chunk of the reads, and that chunk's step is timed by stage
@@ -177,6 +200,7 @@ sys.modules["nimble_tpu"] = None  # nor the JAX package
 
 import contextlib
 import gzip
+import importlib.util
 import io
 import itertools
 import json
@@ -257,8 +281,8 @@ WORLD_KILL_SPANS = 3
 PROC_DEADLINE_S = 240
 MERGE_TIMEOUT_S = 180
 
-# the port's CLI in a process of its own (jax and the JAX package
-# unimportable). KILL_AFTER_EMITS=n ends it with os._exit(9) right after the
+# the port's CLI in a process of its own, as `python -m nimble_tpu_torch`
+# runs it (jax and the JAX package unimportable). KILL_AFTER_EMITS=n ends it with os._exit(9) right after the
 # n-th LibraryRunner.emit_out: that span's rows are written, its checkpoint
 # is not, nothing is cleaned up. A process that ends prints its wall (the
 # CLI's main, torch's import and the card's start-up excluded) and its
@@ -285,7 +309,8 @@ if kill:
 from nimble_tpu_torch.__main__ import main
 t0 = time.perf_counter()
 rc = main(sys.argv[1:])
-torch.cuda.synchronize()
+if torch.cuda.is_initialized():
+    torch.cuda.synchronize()
 print("RESULT " + json.dumps({"wall_s": time.perf_counter() - t0, "launches": {
     n: getattr(K, n).launches for n in ("kmer_keys", "mono_probe", "band_tree_expand")}}), flush=True)
 sys.exit(rc)
@@ -606,7 +631,7 @@ def phase_main_path(work: str, name: str, lib: str, fq: str):
     if os.path.getsize(counts) == 0:
         raise AssertionError("report wrote an empty count matrix for barcoded pairs")
     say("main", f"report {time.perf_counter() - t0:.2f} s")
-    return bam, pout, se_wall, {k: se[k] + pe_counts[k] for k in se}
+    return bam, pout, se_wall, {k: se[k] + pe_counts[k] for k in se}, (r1, r2, whitelist)
 
 
 def phase_mono_data(work: str, lib: str):
@@ -874,6 +899,7 @@ def phase_cuda_vs_cpu(work: str):
     lib, fq = bench_data.write_single(os.path.join(work, "cmp"), N_CMP_READS)
     for probe, flags in (("group", []), ("mono", MONO)):
         compare_devices(f"HLA-100, --probe {probe}", lib, fq, flags, N_CMP_READS)
+    return lib, fq
 
 
 def phase_wide_data(work: str):
@@ -1352,11 +1378,12 @@ def phase_report(work: str, pout: str):
         f"cpu {ev_cpu['near_ties']}")
 
     # (b) a realistic UMI workload; (c) full width, W = 625
-    RB.bench(d, N_REPORT_ROWS, bench_data.hla100_names(), RB.SEED, "(b)")
+    b_runs = RB.bench(d, N_REPORT_ROWS, bench_data.hla100_names(), RB.SEED, "(b)")
     runs = RB.bench(d, N_REPORT_WIDE, bench_data.wide_names(), RB.SEED, "(c)",
                     engines=RB.ENGINES[:1] + RB.ENGINES[2:3])
     if runs["--device"][2]["words"] != 625:
         raise AssertionError(f"(c): the bitsets are {runs['--device'][2]['words']} words wide, not 625")
+    return {"(b)": b_runs, "(c)": runs}
 
 
 def phase_stacked_data(work: str):
@@ -1493,18 +1520,23 @@ def phase_stacked(work: str, ref: str, fq: str, cmp_fq: str, bam: str):
 _PROCS = []  # every subprocess phase 20 starts, killed if the phase fails
 
 
-def start_align(tag: str, args, env, d: str):
-    """`align ... --device cuda` through PROC_RUNNER in a subprocess with
+def start_cli(tag: str, argv, env, d: str):
+    """The port's CLI on `argv` through PROC_RUNNER in a subprocess with
     `env` over os.environ, a run log of its own and its output in a file.
     Returns (tag, Popen, run log path, output path, start time)."""
     base = os.path.join(d, re.sub(r"[^A-Za-z0-9]+", "_", tag).strip("_"))
     full = {**os.environ, "NIMBLE_TPU_MERGE_TIMEOUT_S": str(MERGE_TIMEOUT_S), **env,
             "NIMBLE_TPU_RUNLOG": base + ".jsonl"}
     with open(base + ".out", "w") as out:
-        p = subprocess.Popen([sys.executable, "-c", PROC_RUNNER, "align", *args, "--device", "cuda"], cwd=REPO,
+        p = subprocess.Popen([sys.executable, "-c", PROC_RUNNER, *argv], cwd=REPO,
                              env=full, stdout=out, stderr=subprocess.STDOUT)
     _PROCS.append(p)
     return tag, p, base + ".jsonl", base + ".out", time.perf_counter()
+
+
+def start_align(tag: str, args, env, d: str):
+    """`align ... --device cuda` through start_cli."""
+    return start_cli(tag, ["align", *args, "--device", "cuda"], env, d)
 
 
 def proc_output(proc) -> str:
@@ -1540,6 +1572,8 @@ def wait_procs(procs, rcs):
 
 
 def run_events(log: str):
+    if not os.path.exists(log):
+        return []
     with open(log) as f:
         return [json.loads(ln) for ln in f if ln.strip()]
 
@@ -1769,6 +1803,183 @@ def phase_resume(work: str, lib: str, fq: str, bam: str, pout: str, se_wall: flo
     return {k: sum(c[k] for c in counts) for k in counts[0]}
 
 
+def run_cli(tag: str, argv, d: str, rc: int = 0, env=None):
+    """One process of the port's CLI (start_cli), waited for; it must exit
+    `rc`. Returns (seconds from launch to exit, its output, its RESULT dict
+    or None, its run log events)."""
+    proc = start_cli(tag, argv, env or {}, d)
+    wall, = wait_procs([proc], [rc])
+    say("proc", f"{tag}: exit {rc}, {wall:.2f} s from launch to exit")
+    out = proc_output(proc)
+    res = json.loads(re.search(r"^RESULT (.*)$", out, re.M).group(1)) if rc == 0 else None
+    return wall, out, res, run_events(proc[2])
+
+
+def fresh_library(lib: str, d: str) -> str:
+    """A copy of a library JSON in a directory of its own: no index, no
+    sidecar beside it."""
+    os.makedirs(d)
+    return shutil.copy(lib, d)
+
+
+def built_nothing(label: str, events) -> None:
+    """An align's run log: the index loaded, no kernel library, index or
+    gband sidecar built."""
+    idx = [e["source"] for e in events if e["event"] == "index"]
+    built = [e["event"] for e in events if e["event"] == "kernel_build"
+             or (e["event"] in ("index", "gband_sidecar") and e["source"] == "built")]
+    if idx != ["loaded"] or built:
+        raise AssertionError(f"{label}: index {idx}, built {built}: not everything was loaded")
+
+
+def phase_pipeline(work: str, lib: str, pairs, bam_p5: str, pout: str):
+    """Phase 21: BASELINE config 4 as a user runs it, one process of the
+    port's CLI per subcommand (PROC_RUNNER), on phase 5's tagged pairs and
+    HLA-100: fastq-to-bam -> index --warm 100 --paired on a fresh copy of
+    the library (after the kernel library is removed, so that warm builds
+    it, as on a fresh checkout) -> align -> report -> plot. The align must
+    load what warm left (its run log) and write phase 5's TSV, the report
+    its counts. Beside it, one cold align on a second fresh copy, with no
+    index and no kernel library: the same bytes. Returns the launch counts
+    of warm, the warmed align and the cold align."""
+    from nimble_tpu_torch.align import kernels as K
+
+    t_phase = time.perf_counter()
+    d = os.path.join(work, "p21")
+    os.makedirs(d)
+    cores = str(os.cpu_count() or 1)
+    r1, r2, whitelist = pairs
+    walls, counts = {}, []
+    try:
+        bam = os.path.join(d, "tagged.bam")
+        walls["fastq-to-bam"], *_ = run_cli("fastq-to-bam", ["fastq-to-bam", "--r1-fastq", r1, "--r2-fastq", r2,
+                                                             "--map", whitelist, "--output", bam, "-c", cores], d)
+        with open(bam, "rb") as f, open(bam_p5, "rb") as g:
+            bam_same = f.read() == g.read()
+
+        # the cold align: a fresh library, no index, no kernel library
+        shutil.rmtree(K.BUILD_DIR, ignore_errors=True)
+        cold_lib = fresh_library(lib, os.path.join(d, "cold"))
+        cold_tsv = os.path.join(d, "cold.tsv")
+        cold_wall, _, res, ev = run_cli("align (cold)", ["align", "--reference", cold_lib, "--output", cold_tsv,
+                                                         "--input", bam, "-c", cores, "--device", "cuda"], d)
+        counts.append(res["launches"])
+        cold_built = {e["event"]: e["wall_s"] for e in ev if e["event"] in ("index", "kernel_build")}
+        if set(cold_built) != {"index", "kernel_build"}:
+            raise AssertionError(f"the cold align built {sorted(cold_built)}, not the index and the kernel library")
+        same_file("the cold align's TSV", cold_tsv, pout)
+
+        # index --warm, then the pipeline on what it left
+        shutil.rmtree(K.BUILD_DIR, ignore_errors=True)
+        warm_lib = fresh_library(lib, os.path.join(d, "warm"))
+        walls["index --warm"], out, res, ev = run_cli("index --warm", ["index", "--reference", warm_lib, "--warm",
+                                                                       "100", "--paired"], d)
+        counts.append(res["launches"])
+        for ln in out.splitlines():
+            if ln.startswith(("Indexed", "Warmed", "  ")):
+                say("pipeline", f"index --warm: {ln.strip()}")
+        if not [e for e in ev if e["event"] == "kernel_build"] or "kernel library: " not in out:
+            raise AssertionError("index --warm did not build the kernel library")
+        tsv = os.path.join(d, "out.tsv")
+        walls["align"], _, res, ev = run_cli("align", ["align", "--reference", warm_lib, "--output", tsv, "--input",
+                                                       bam, "-c", cores, "--device", "cuda"], d)
+        counts.append(res["launches"])
+        built_nothing("align after index --warm", ev)
+        if res["launches"]["kmer_keys"] <= 0:
+            raise AssertionError("the warmed align never launched the kmer_keys kernel")
+        rows = same_file("the warmed align's TSV", tsv, pout)
+        st = {e["stage"]: e["wall_s"] for e in ev if e["event"] == "stage_end"}
+        counts_tsv = os.path.join(d, "counts.tsv")
+        walls["report"], *_ = run_cli("report", ["report", "-i", tsv, "-o", counts_tsv], d)
+        same_file("the count TSV", counts_tsv, os.path.join(os.path.dirname(pout), "counts.tsv"))
+        html = os.path.join(d, "report.html")
+        if importlib.util.find_spec("matplotlib") is None:
+            say("pipeline", "plot left out: matplotlib is not installed here, and the port's plot, like the "
+                "reference's, draws its figures with it")
+        else:
+            walls["plot"], *_ = run_cli("plot", ["plot", "--input_file", tsv, "--output_file", html], d)
+            if os.path.getsize(html) == 0:
+                raise AssertionError("plot wrote an empty report")
+    finally:
+        for p in _PROCS:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    total = sum(walls.values())
+    say("pipeline", "walls from launch to exit: " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
+        + f"; sum {total:.2f} s, {N_PAIRS / total:,.0f} pairs/s; fastq-to-bam alone "
+        f"{N_PAIRS / walls['fastq-to-bam']:,.0f} pairs/s (its BAM == phase 5's: {bam_same})")
+    say("pipeline", f"align after warm: index load {st.get('index_build', 0.0):.2f} s, engine build "
+        f"{st.get('engine_build', 0.0):.2f} s, nothing built, TSV == phase 5's ({rows} rows), counts == phase "
+        f"5's; cold align {cold_wall:.2f} s (index build {cold_built['index']:.2f} s, kernel library "
+        f"{cold_built['kernel_build']:.2f} s) against the warmed {walls['align']:.2f} s, the same bytes")
+    say("pipeline", f"phase 21 in {time.perf_counter() - t_phase:.1f} s")
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def phase_profile(work: str, lib: str, fq: str):
+    """Phase 22: one in-process align of phase 8's reads under
+    NIMBLE_TPU_PROFILE; the trace must name the kmer_keys kernel (the
+    symbol csrc/kmer_keys.cu launches) and the TSV equal the unprofiled
+    run's. Returns the launch counts of both runs."""
+    d = os.path.join(work, "p22")
+    trace_dir = os.path.join(d, "trace")
+    os.makedirs(d)
+    outs = {k: os.path.join(d, f"{k}.tsv") for k in ("profiled", "plain")}
+    with environ({"NIMBLE_TPU_PROFILE": trace_dir}):
+        wall_p, _, c1 = drive("(22) profiled group reads", ["--reference", lib, "--output", outs["profiled"],
+                                                            "--input", fq], N_CMP_READS, ["kmer_keys"], path="group")
+    wall, _, c2 = drive("(22) the same, unprofiled", ["--reference", lib, "--output", outs["plain"], "--input", fq],
+                        N_CMP_READS, ["kmer_keys"], path="group")
+    rows = same_file("(22) the profiled TSV", outs["profiled"], outs["plain"])
+    traces = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    if len(traces) != 1:
+        raise AssertionError(f"(22) the trace directory holds {traces}, not one trace")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    kk = [e for e in kernels if "kmer_keys_kernel" in e.get("name", "")]
+    if not kk:
+        raise AssertionError(f"(22) the trace names no kmer_keys_kernel among its {len(kernels)} kernels")
+    say("profile", f"(22) {os.path.basename(traces[0])}, {os.path.getsize(traces[0]) / 1e6:.1f} MB: "
+        f"{len(kernels)} kernel records, {len(kk)} of them {kk[0]['name'][:60]!r} "
+        f"({sum(e['dur'] for e in kk) / 1e3:.4f} ms on the card); TSV == the unprofiled run's ({rows} rows); "
+        f"wall {wall_p:.2f} s profiled, {wall:.2f} s not")
+    return {k: c1[k] + c2[k] for k in c1}
+
+
+def phase_distributed(work: str, reports):
+    """Phase 23: `report --distributed 1` on the card, in-process, on phase
+    18's (b) and (c) TSVs: --device's bytes, and within its near-tie rule
+    the host report's; rows/s beside --device's, the exchange's blk and
+    buffer rows. Then `--distributed 2` on this machine's one card must
+    refuse, naming the device count."""
+    from nimble_tpu_torch import report_bench as RB
+
+    d = os.path.join(work, "report")
+    log = os.environ["NIMBLE_TPU_RUNLOG"]
+    for tag, n in (("(b)", N_REPORT_ROWS), ("(c)", N_REPORT_WIDE)):
+        runs = reports[tag]
+        tsv = os.path.join(d, f"{tag}.tsv")
+        out = os.path.join(d, f"{tag}_distributed1.tsv")
+        wall, _, ev = RB.run_report(tsv, out, ["--distributed", "1"])
+        xc = [e for e in run_events(log) if e["event"] == "report_distributed"][-1]
+        same_file(f"(23) {tag} --distributed 1 against --device", out, runs["--device"][1])
+        RB.hold_to_host(f"(23) {tag} --distributed 1", runs["host"][1], out, ev["near_ties"])
+        dev_wall = runs["--device"][0]
+        say("distributed", f"(23) {tag} {n} rows: --distributed 1 {wall:.3f} s, {n / wall:,.0f} rows/s, against "
+            f"--device {dev_wall:.3f} s, {n / dev_wall:,.0f} rows/s; == --device's bytes; exchange blk {xc['blk']}, "
+            f"buffer_rows {xc['buffer_rows']}, placement {xc['place_s']:.3f} s, exchange {xc['exchange_s']:.3f} s")
+    n_dev = torch.cuda.device_count()
+    out = os.path.join(d, "refused.tsv")
+    _, text, _, _ = run_cli("report --distributed 2", ["report", "-i", os.path.join(d, "(b).tsv"), "-o", out,
+                                                       "--distributed", str(n_dev + 1)], d, rc=1)
+    want = f"needs {n_dev + 1} CUDA devices, and {n_dev} {'is' if n_dev == 1 else 'are'} visible"
+    if want not in text or os.path.exists(out):
+        raise AssertionError(f"(23) --distributed {n_dev + 1} did not refuse as it should:\n{text[-2000:]}")
+    say("distributed", f"(23) --distributed {n_dev + 1} on {n_dev} card(s) refused (exit 1): {want}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA card",
@@ -1778,34 +1989,39 @@ def main() -> int:
     import nimble_tpu_torch  # noqa: F401  (raises outside a checkout of the repo)
 
     t_start = time.perf_counter()
-    name, _smi = phase_device()
-    phase_build()
     with tempfile.TemporaryDirectory(prefix="nimble_smoke_") as work:
-        # the pipeline's stage log (index and engine build walls) for drive()
+        # the pipeline's stage log (index and engine build walls) for
+        # drive(); set before the first event (the kernel build's) opens it
         os.environ["NIMBLE_TPU_RUNLOG"] = os.path.join(work, "runlog.jsonl")
+        name, _smi = phase_device()
+        phase_build()
         lib, fq = phase_data(work)
         kk_err, kk_ms, kk_plain, kk_bound = phase_kernel(lib, fq)
         phase_goldens(work)
-        bam, pout, se_wall, group_counts = phase_main_path(work, name, lib, fq)
+        bam, pout, se_wall, group_counts, pairs = phase_main_path(work, name, lib, fq)
         nm1_lib, nm1_fq = phase_mono_data(work, lib)
         mp_err, mp_ms, mp_plain, mp_bound = phase_mono_kernel(lib, fq, nm1_lib, nm1_fq)
         mono_counts = phase_mono_main(work, lib, fq, bam, nm1_lib, nm1_fq)
-        phase_cuda_vs_cpu(work)
+        cmp_lib, cmp_fq = phase_cuda_vs_cpu(work)
         wlib, wfq, wcmp, wr1, wr2 = phase_wide_data(work)
         bt_err, bt_ms, bt_plain, bt_bound = phase_wide_kernel(wlib, wfq)
         wide_counts = phase_wide_main(work, wlib, wfq, wr1, wr2)
         compare_devices("20k library, gband", wlib, wcmp)
         cls_err, cls_bands, cls_counts = phase_cls_paths(work, wlib, wfq, wr1, wr2, wcmp)
-        phase_report(work, pout)
+        reports = phase_report(work, pout)
         sref, sfq, scmp, sbam = phase_stacked_data(work)
         st_err = phase_stacked_kernels(sref, sfq)
         stacked_counts = phase_stacked(work, sref, sfq, scmp, sbam)
         resume_counts = phase_resume(work, lib, fq, bam, pout, se_wall, wlib, wfq)
+        pipeline_counts = phase_pipeline(work, lib, pairs, bam, pout)
+        profile_counts = phase_profile(work, cmp_lib, cmp_fq)
+        phase_distributed(work, reports)
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     # no single PyTorch call computes any of these functions: library_ms null
     # times and bounds at each kernel's main path; launches summed over
     # every path's runs, errors over every check
-    runs = (group_counts, mono_counts, wide_counts, cls_counts, stacked_counts, resume_counts)
+    runs = (group_counts, mono_counts, wide_counts, cls_counts, stacked_counts, resume_counts, pipeline_counts,
+            profile_counts)
     kernels = [
         ("kmer_keys", "nimble_tpu/align/kernels.py:157", sum(c["kmer_keys"] for c in runs),
          max(kk_err, cls_err, st_err), kk_ms, kk_plain, kk_bound),

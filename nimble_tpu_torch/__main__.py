@@ -5,11 +5,14 @@ the plain torch twins), resumes an interrupted run with `--resume`, and runs
 as one process of a world under NIMBLE_TPU_NUM_PROCS / NIMBLE_TPU_PROC_ID.
 `report` runs the exact host engine, or with `--device [cuda|cpu]` the UMI
 pipeline as torch segment ops (bare `--device` is cuda, as the reference's
-flag runs on its accelerator). `generate`, `fastq-to-bam`, `plot`, `index`
-and `download` run the port's own copies of the reference's host modules;
-nothing here imports nimble_tpu. `align --mesh`, a JAX_COORDINATOR_ADDRESS,
-`report --distributed` and `index --warm` are not ported yet and exit
-non-zero naming their ROADMAP item.
+flag runs on its accelerator), or with `--distributed N` that pipeline on N
+shards after a (cb, umi) bucket exchange (cuda:0..N-1, or N CPU shards
+under `--device cpu`). `index --warm` builds and saves the index, then
+builds the engine the first `align` would build on `--device` and runs one
+span through it. `generate`, `fastq-to-bam`, `plot`, `index` and `download`
+run the port's own copies of the reference's host modules; nothing here
+imports nimble_tpu. `align --mesh` and a JAX_COORDINATOR_ADDRESS are not
+ported yet and exit non-zero naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -97,8 +100,12 @@ def main(argv=None) -> int:
              "instead of the exact host path: on the card ('cuda', also the "
              "bare flag; raises when no card is visible) or 'cpu'.",
     )
-    report_parser.add_argument("--distributed", type=int, default=0, metavar="N",
-                               help="Not ported (ROADMAP Queue 1 item 8).")
+    report_parser.add_argument(
+        "--distributed", type=int, default=0, metavar="N",
+        help="Shard the device UMI pipeline over N shards after a cell-barcode "
+             "and UMI bucket exchange (parallel/dist.py): cuda:0..N-1 (the "
+             "default), or N CPU shards with --device cpu.",
+    )
     report_parser.add_argument(
         "--stream", action="store_true", default=None,
         help="Run the exact host pipeline via bounded spill buckets "
@@ -127,11 +134,25 @@ def main(argv=None) -> int:
     )
     index_parser.add_argument("--kmer-length", type=int, default=None)
     index_parser.add_argument("--probe", type=str, default="group", choices=("group", "mono"))
-    index_parser.add_argument("--warm", type=int, default=0, metavar="READ_LEN", nargs="?", const=100,
-                              help="Not ported (ROADMAP Queue 1 item 5).")
-    index_parser.add_argument("--paired", action="store_true", default=False)
-    index_parser.add_argument("--chunk-size", type=int, default=0)
-    index_parser.add_argument("--strand_filter", type=str, default="unstranded")
+    index_parser.add_argument(
+        "--warm", type=int, default=0, metavar="READ_LEN", nargs="?", const=100,
+        help="After saving the index, build the engine the first `align` of "
+             "reads this long (default 100 when given bare) would build on "
+             "--device, with its sidecar and the kernel library, and run one "
+             "span through it. Pays off only with the default --output, the "
+             "index that `align` auto-loads.",
+    )
+    index_parser.add_argument("--paired", action="store_true", default=False,
+                              help="With --warm: the paired-end (R1+R2 / BAM) engine.")
+    index_parser.add_argument("--chunk-size", type=int, default=0,
+                              help="With --warm: the chunk size `align --chunk-size` would get (0 = auto).")
+    index_parser.add_argument("--strand_filter", type=str, default="unstranded",
+                              help="With --warm: the strand filter of the later `align`.")
+    index_parser.add_argument(
+        "--device", type=str, default="cuda", choices=DEVICES,
+        help="With --warm: the device of the engine, as `align --device` "
+             "(cuda by default; raises when no card is visible).",
+    )
 
     args = parser.parse_args(argv)
 
@@ -167,18 +188,22 @@ def main(argv=None) -> int:
             probe=args.probe,
         )
     if args.subcommand == "report":
-        if args.distributed > 0:
-            return _unported("report --distributed is ROADMAP Queue 1 item 8")
         from nimble_tpu_torch.report.tsv import report
 
         summarize_columns_list = args.summarize.split(",") if args.summarize else None
+        engine = "host"
+        if args.distributed > 0:
+            engine = "distributed"
+        elif args.device is not None:
+            engine = "device"
         report(
             args.input,
             args.output,
             summarize_columns_list,
             args.threshold,
             args.disable_thresholding,
-            engine="host" if args.device is None else "device",
+            engine=engine,
+            dist_shards=args.distributed,
             stream=args.stream,
             device=args.device or "cuda",
         )
@@ -202,11 +227,11 @@ def main(argv=None) -> int:
         )
         return 0
     if args.subcommand == "index":
-        if args.warm:
-            return _unported("index --warm is ROADMAP Queue 1 item 5")
         from nimble_tpu_torch.config import load_library
+        from nimble_tpu_torch.device import resolve_device
         from nimble_tpu_torch.index.builder import build_index, index_cache_key, index_cache_path
 
+        device = resolve_device(args.device) if args.warm else None  # no card, no work
         config, data = load_library(args.reference)
         group_g = 0 if args.probe == "mono" else None
         idx = build_index(data, config, k=args.kmer_length, group_g=group_g)
@@ -217,6 +242,12 @@ def main(argv=None) -> int:
             f"Indexed {idx.n_kmers} k-mers, {idx.n_features} features, "
             f"{idx.n_classes} classes -> {out}"
         )
+        if args.warm:
+            from nimble_tpu_torch.align.pipeline import warm_engine
+
+            for line in warm_engine(idx, config, device, args.warm, strand_filter=args.strand_filter,
+                                    chunk_size=args.chunk_size or None, paired=args.paired):
+                print(line)
         return 0
 
     parser.print_help()

@@ -52,6 +52,7 @@ picks it on every device, since both give the same TSV and the dense
 from __future__ import annotations
 
 import os
+import time
 from dataclasses import dataclass, replace
 from typing import Optional
 
@@ -1180,3 +1181,38 @@ class AlignEngine(ChunkDispatch):
         if "band_rows" in merged:
             merged["band_meta"] = (self.band_pw, W)
         return merged
+
+    def warmup(self) -> dict:
+        """Run one zero-filled span through align_packed_async ->
+        collect_async (engine.py:AlignEngine.warmup, which compiles the
+        dispatch programs; the port has none to compile, and no
+        `scan_chunks`, so one span). On cuda it first builds the kernel
+        library (kernels.build) unless it is there already; the span then
+        loads it and launches the path's kernels once. Both are the run
+        log's stages `warm_kernels` and `warm_step`. Returns {"kernels":
+        None on the CPU, else {"path", "built", "build_s"}; "step_s": the
+        span's wall}."""
+        from nimble_tpu_torch.align import kernels as K
+        from nimble_tpu_torch.observability import runlog
+
+        log = runlog()
+        kernels = None
+        if self.device.type == "cuda":
+            with log.stage("warm_kernels"):
+                path = K.library_path()
+                built = not os.path.exists(path)
+                t0 = time.perf_counter()
+                K.build()
+                kernels = {"path": path, "built": built, "build_s": time.perf_counter() - t0}
+        span, L = self.chunk_size, self.max_len
+        pb = {}
+        for mate in ("r1", "r2") if self.paired else ("r1",):
+            pb[f"{mate}_words"] = np.zeros((span, (L + 15) // 16), dtype=np.int32)
+            pb[f"{mate}_lens"] = np.full(span, L, dtype=np.int32)
+            pb[f"{mate}_nidx"] = np.zeros(0, dtype=np.int32)
+            pb[f"{mate}_nrows"] = np.zeros((0, (L + 31) // 32), dtype=np.int32)
+        with log.stage("warm_step", span=span, max_len=L, paired=self.paired):
+            t0 = time.perf_counter()
+            self.collect_async(self.align_packed_async(pb))  # .cpu() waits for the card
+            step_s = time.perf_counter() - t0
+        return {"kernels": kernels, "step_s": step_s}

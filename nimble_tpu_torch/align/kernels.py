@@ -40,11 +40,13 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 
 import torch
 
 from nimble_tpu_torch.align.tables import MONO_MAX_STASH
 from nimble_tpu_torch.index.hashing import MASK32, bucket_hashes
+from nimble_tpu_torch.observability import runlog
 
 N_CODE = 4
 
@@ -165,11 +167,13 @@ def library_path() -> str:
 
 def build() -> str:
     """Compile csrc/*.cu into the shared library unless it is already built:
-    one nvcc per source, all started together, then one link. Returns its
-    path; what ptxas said of each kernel is in `<path>.ptxas.txt`."""
+    one nvcc per source, all started together, then one link (the run log's
+    `kernel_build` event). Returns its path; what ptxas said of each kernel
+    is in `<path>.ptxas.txt`."""
     path = library_path()
     if os.path.exists(path):
         return path
+    t0 = time.perf_counter()
     os.makedirs(BUILD_DIR, exist_ok=True)
     srcs = sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cu"))
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -195,6 +199,7 @@ def build() -> str:
         if res.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
         os.replace(so, path)  # atomic: concurrent builders never see a partial file
+    runlog().event("kernel_build", path=path, sources=len(srcs), wall_s=round(time.perf_counter() - t0, 4))
     return path
 
 

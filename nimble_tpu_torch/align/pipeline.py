@@ -28,6 +28,7 @@ refuses `--mesh` and JAX_COORDINATOR_ADDRESS (ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import queue
@@ -490,7 +491,11 @@ def append_path_string(input_path: str, append: str) -> str:
 def _prefetch_iter(gen, depth: int = 3):
     """Drain `gen` on a daemon producer thread through a bounded queue.
     Exceptions re-raise at the consumer; an abandoned consumer sets a stop
-    flag so the producer exits and `gen`'s finally (reader close) runs."""
+    flag so the producer exits and `gen`'s finally (reader close) runs.
+    The end marker waits for room like any item: the reference drops it
+    when the queue is full at the end (a consumer slower than the reader,
+    as in a run whose first span waits for the card), and its consumer
+    then waits forever."""
     q = queue.Queue(maxsize=depth)
     sentinel = object()
     stop = threading.Event()
@@ -511,10 +516,12 @@ def _prefetch_iter(gen, depth: int = 3):
             err.append(e)
         finally:
             gen.close() if hasattr(gen, "close") else None
-            try:
-                q.put_nowait(sentinel)
-            except queue.Full:
-                pass
+            while not stop.is_set():
+                try:
+                    q.put(sentinel, timeout=0.2)
+                    break
+                except queue.Full:
+                    continue
 
     threading.Thread(target=run, daemon=True, name="bam-prefetch").start()
     try:
@@ -621,6 +628,50 @@ def _build_engines(runners: List[LibraryRunner], device: torch.device,
             log.event("engine", path=r.engine.path, chunk_size=r.engine.chunk_size,
                       table_bytes=r.engine.table_bytes, wire=r.engine.wire)
     return None
+
+
+def warm_engine(index: KmerIndex, config: Config, device: torch.device, read_len: int,
+                strand_filter: str = "unstranded", chunk_size: Optional[int] = None,
+                paired: bool = False) -> List[str]:
+    """`index --warm READ_LEN` (reference __main__.py:221-250): build the
+    engine that the first `align` of reads this long would build on
+    `device`, with align's arguments for the same flags (so the same path,
+    the same gband sidecar next to the saved index), and run one warm span
+    through it (AlignEngine.warmup). Its parts go to the run log as the
+    stages `engine_build` (with the `engine` and `gband_sidecar` events),
+    `warm_kernels` and `warm_step`. Returns the lines `index --warm`
+    prints: the path and chunk, the strand filter and mates, table bytes,
+    the kernel library (built or found), each sidecar (built or loaded)
+    and the warm step's wall."""
+    from nimble_tpu_torch.observability import runlog
+
+    log = runlog()
+    max_len = min(_round_len(read_len), 256)
+    runner = LibraryRunner(config, index, None, None, "")  # warm emits nothing
+    t0 = time.perf_counter()
+    # align's own engine construction, with what the CLI's align passes it
+    # (no reader batch to cap the chunk)
+    _build_engines([runner], device, strand_filter, chunk_size, max_len, paired, None, log)
+    build_s = time.perf_counter() - t0
+    engine = runner.engine
+    warm = engine.warmup()
+    lines = [f"Warmed the {engine.path} engine on {device} for reads of {read_len} (max_len {engine.max_len}, "
+             f"chunk {engine.chunk_size}, {strand_filter}, {'paired' if paired else 'single-end'}): "
+             f"tables {engine.table_bytes} bytes, engine build {build_s:.2f} s"]
+    k = warm["kernels"]
+    if k is None:
+        lines.append("  kernel library: none on the CPU (the plain torch versions run)")
+    else:
+        how = f"built in {k['build_s']:.2f} s" if k["built"] else "found"
+        lines.append(f"  kernel library: {k['path']} ({how})")
+    side = getattr(index, "gband_sidecar", None)
+    if side is None:
+        lines.append("  sidecars: none on this path")
+    else:
+        lost = "" if side["source"] == "loaded" or side["written"] else ", not written"
+        lines.append(f"  gband sidecar: {side['path']} ({side['source']} in {side['wall_s']:.2f} s{lost})")
+    lines.append(f"  warm step: {warm['step_s']:.3f} s")
+    return lines
 
 
 def refuse_unported(mesh: str = "") -> None:
@@ -781,7 +832,7 @@ def align_files(
     process's run. With -c the threaded reader parses only the batches
     whose spans this process owns (set_skip)."""
     from nimble_tpu_torch.io.packing import pack_batch
-    from nimble_tpu_torch.observability import Throughput, runlog
+    from nimble_tpu_torch.observability import Throughput, profile, runlog
 
     from nimble_tpu_torch.align.host_probe import HostMonoProber, patch_short_reads
 
@@ -895,6 +946,9 @@ def align_files(
     emit_thread = None
     emitq: "queue.Queue" = queue.Queue(maxsize=INFLIGHT)
     emit_exc: List[BaseException] = []
+    # NIMBLE_TPU_PROFILE traces the span loop, from the feeder through the
+    # emission thread's join
+    profiled = contextlib.ExitStack()
     try:
         batches, reader_obj = _make_batches(inputs, is_bam, reader_batch, reader_len, num_cores)
         first = next(batches, None)
@@ -938,6 +992,7 @@ def align_files(
 
             reader_obj.set_skip(skip_pred)
         feeder = SpanFeeder(span, paired)
+        profiled.enter_context(profile(device))
 
         def patch_short(r, out, sb):
             # group paths only: rows whose shortest mate is under k+g-1 get
@@ -1144,6 +1199,7 @@ def align_files(
         if emit_thread is not None:
             emitq.put(None)
             emit_thread.join()
+        profiled.close()
         for r in runners:
             r.close()
     if failed:

@@ -55,6 +55,7 @@ Two-choice class-id bucket (wide, S = BUCKET_SLOTS): [hi x S | lo x S |
 from __future__ import annotations
 
 import os
+import time
 import zipfile
 from typing import Dict, Optional
 
@@ -739,10 +740,14 @@ def groupband_tables(index: KmerIndex) -> Optional[Dict[str, np.ndarray]]:
     """build_groupband_tables, read from and written to the sidecar that
     the reference reads and writes (same file, fingerprint and keys), and
     kept on the index object for later engines of the same process. An
-    unreadable or stale sidecar is rebuilt; writing it is best-effort."""
+    unreadable or stale sidecar is rebuilt; writing it is best-effort.
+    Whether the tables were loaded or built, and in how many seconds, is
+    kept as `index.gband_sidecar` and is the run log's `gband_sidecar`
+    event."""
     cached = getattr(index, "_torch_gband", "unset")
     if cached != "unset":
         return cached
+    t0 = time.perf_counter()
     disk = gband_sidecar_path(index) if index.has_pairs else None
     out = None
     if disk and os.path.exists(disk):
@@ -752,15 +757,22 @@ def groupband_tables(index: KmerIndex) -> Optional[Dict[str, np.ndarray]]:
                     out = {k: z[k] for k in z.files if k != "__fp"}
         except (OSError, EOFError, KeyError, ValueError, zipfile.BadZipFile):
             out = None  # unreadable: rebuild below
+    source, written = "loaded", False
     if out is None:
+        source = "built"
         out = build_groupband_tables(index)
         if out is not None and disk:
             try:
                 tmp = f"{disk}.{os.getpid()}.tmp.npz"
                 np.savez(tmp, __fp=gband_fingerprint(index), **out)
                 os.replace(tmp, disk)
+                written = True
             except OSError:
                 pass
+    if out is not None:
+        index.gband_sidecar = {"path": disk, "source": source, "written": written,
+                               "wall_s": round(time.perf_counter() - t0, 4)}
+        runlog().event("gband_sidecar", **index.gband_sidecar)
     index._torch_gband = out
     return out
 

@@ -334,9 +334,14 @@ def build_index_for_library(
     §2.4; a 20k-allele library costs minutes to index, so `align` must not).
     Set cache=False or NIMBLE_TPU_NO_INDEX_CACHE=1 to force a rebuild.
     group_g: probe-grouping override (see build_index); part of the cache
-    key, so group and mono indexes cache independently-validly."""
+    key, so group and mono indexes cache independently-validly. The run
+    log's `index` event says whether the index was loaded or built."""
     import os
+    import time
 
+    from nimble_tpu_torch.observability import runlog
+
+    t0 = time.perf_counter()
     if cache is None:
         cache = os.environ.get("NIMBLE_TPU_NO_INDEX_CACHE", "") != "1"
     key = None
@@ -348,15 +353,22 @@ def build_index_for_library(
                 with np.load(cache_path, allow_pickle=True) as z:
                     fresh = "cache_key" in z.files and str(z["cache_key"]) == key
                 if fresh:
-                    return KmerIndex.load(cache_path)
+                    index = KmerIndex.load(cache_path)
+                    runlog().event("index", path=cache_path, source="loaded",
+                                   wall_s=round(time.perf_counter() - t0, 4))
+                    return index
         except (OSError, ValueError, KeyError):
             key = None  # unreadable library/cache: build, don't persist
     index = build_index(data, config, k=k, group_g=group_g)
+    written = False
     if cache and key is not None:
         try:
             index.save(cache_path, cache_key=key)
+            written = True
         except OSError:
             pass  # read-only library dir: caching is best-effort
+    runlog().event("index", path=cache_path, source="built", written=written,
+                   wall_s=round(time.perf_counter() - t0, 4))
     return index
 
 

@@ -8,16 +8,16 @@ nimble_tpu keeps those prints and adds:
     correction statistics), enabled via NIMBLE_TPU_RUNLOG=<path> or
     explicitly by the caller;
   * stage() — wall-clock stage timer context manager feeding the run log;
+  * profile() — torch.profiler trace context (NIMBLE_TPU_PROFILE=<dir>), for
+    TensorBoard-compatible host and device traces of the alignment hot loop;
   * Throughput — a running reads/s counter.
-
-(The reference's jax.profiler `profile()` is not copied: ROADMAP Queue 1
-item 5 moves it to torch.profiler.)
 """
 from __future__ import annotations
 
 import contextlib
 import json
 import os
+import sys
 import time
 from typing import Any, Dict, Optional
 
@@ -62,6 +62,30 @@ def runlog() -> RunLog:
     if _GLOBAL is None:
         _GLOBAL = RunLog()
     return _GLOBAL
+
+
+@contextlib.contextmanager
+def profile(device=None, trace_dir: Optional[str] = None):
+    """torch.profiler trace context; no-op (and no import of torch.profiler)
+    unless a directory is configured. It traces the host, plus the card when
+    `device` is a CUDA device, and writes the trace into the directory in
+    TensorBoard's form (torch.profiler.tensorboard_trace_handler)."""
+    trace_dir = trace_dir or os.environ.get("NIMBLE_TPU_PROFILE")
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, tensorboard_trace_handler
+    from torch.profiler import profile as torch_profile
+
+    activities = [ProfilerActivity.CPU]
+    if device is not None and torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    try:
+        with torch_profile(activities=activities, on_trace_ready=tensorboard_trace_handler(trace_dir)):
+            yield
+    finally:
+        print(f"Profiler trace written to {trace_dir}", file=sys.stderr)
 
 
 class Throughput:

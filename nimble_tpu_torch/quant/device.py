@@ -316,6 +316,34 @@ def report_device_rows(
     )
 
 
+def report_distributed_rows(
+    rows: Sequence[Tuple[str, str, str, float]],
+    n_shards: int,
+    threshold: float = 0.05,
+    disable_thresholding: bool = False,
+    device="cuda",
+) -> Tuple[List[Tuple[str, int, str]], int]:
+    """Distributed-path equivalent of quant.exact.report_rows: deals the
+    rows round-robin over n_shards shards (as if each shard had aligned its
+    own slice of the read stream) and runs the (cb, umi) bucket exchange +
+    per-shard device pipeline (parallel/dist.py), the shards on
+    cuda:0..N-1 or, for device 'cpu', N CPU shards."""
+    from nimble_tpu_torch.parallel.dist import distributed_report, shard_devices
+
+    devices = shard_devices(n_shards, device)
+    if not rows:
+        return [], 0
+    with runlog().stage("report_bitsets", rows=len(rows)):
+        cbs, umis, bits, scores, names = rows_to_bitsets(rows)
+    shard_rows = [[] for _ in range(n_shards)]
+    for i in range(len(rows)):
+        shard_rows[i % n_shards].append((cbs[i], umis[i], bits[i], float(scores[i])))
+    return distributed_report(
+        devices, shard_rows, names, threshold, disable_thresholding,
+        with_dropped=True,
+    )
+
+
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)

@@ -170,6 +170,7 @@ def report(
     threshold: float = 0.05,
     disable_thresholding: bool = False,
     engine: str = "host",
+    dist_shards: int = 0,
     stream: Optional[bool] = None,
     device="cuda",
 ) -> None:
@@ -178,8 +179,10 @@ def report(
     engine selects the UMI pipeline: "host" is the exact float64 path (the
     bit-exactness oracle); "device" runs it as torch segment ops on
     `device` (quant/device.py: 'cuda' by default, which raises without a
-    card, or 'cpu'). The reference's "distributed" engine is not ported
-    (ROADMAP Queue 1 item 8) and raises.
+    card, or 'cpu'); "distributed" runs it on max(1, dist_shards) shards
+    after a (cb, umi) bucket exchange (parallel/dist.py): cuda:0..N-1,
+    which raises before any work when fewer CUDA devices are visible, or N
+    CPU shards for device 'cpu'.
 
     stream (host engine only): run the host path via bounded spill buckets
     (quant/stream.py) so inputs larger than RAM work, bit-identically.
@@ -187,14 +190,16 @@ def report(
     (default 4096).
 
     Each part's wall goes to the run log (NIMBLE_TPU_RUNLOG)."""
-    if engine == "distributed":
-        raise NotImplementedError("report --distributed is not ported (ROADMAP Queue 1 item 8)")
-    if engine not in ("host", "device"):
-        raise ValueError(f"engine must be 'host' or 'device', got {engine!r}")
+    if engine not in ("host", "device", "distributed"):
+        raise ValueError(f"engine must be 'host', 'device' or 'distributed', got {engine!r}")
     if engine == "device":
         from nimble_tpu_torch.device import resolve_device
 
         device = resolve_device(device) if isinstance(device, str) else device
+    elif engine == "distributed":
+        from nimble_tpu_torch.parallel.dist import shard_devices
+
+        shard_devices(max(1, dist_shards), device)  # no card, or too few: raise before any work
     else:
         if stream is None:
             cap_mb = int(os.environ.get("NIMBLE_TPU_REPORT_STREAM_MB", "4096"))
@@ -228,7 +233,13 @@ def report(
         write_empty_counts(output)
         return
 
-    if engine == "device":
+    if engine == "distributed":
+        from nimble_tpu_torch.quant.device import report_distributed_rows
+
+        counts, dropped = report_distributed_rows(
+            rows, max(1, dist_shards), threshold, disable_thresholding, device=device
+        )
+    elif engine == "device":
         from nimble_tpu_torch.quant.device import report_device_rows
 
         counts, dropped = report_device_rows(rows, threshold, disable_thresholding, device=device)

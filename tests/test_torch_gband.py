@@ -205,6 +205,10 @@ def test_device_tables_ship_only_the_gband_step(fam, tmp_path, monkeypatch):
     assert np.array_equal(dev["gband_band"].numpy(), table[:, 1:])
     assert torch.equal(tables["gband_band"], dev["gband_band"])
     events = [json.loads(ln) for ln in (tmp_path / "run.jsonl").read_text().splitlines()]
+    # besides the stage, only where the host tables came from (the
+    # `gband_sidecar` event, once per index)
+    assert {e["event"] for e in events} - {"stage_start", "stage_end"} <= {"gband_sidecar"}
+    events = [e for e in events if e["event"] in ("stage_start", "stage_end")]
     assert [(e["event"], e["stage"]) for e in events] == [("stage_start", "gband_relayout"),
                                                           ("stage_end", "gband_relayout")]
     assert events[0]["bytes"] == table.nbytes and events[1]["wall_s"] >= 0

@@ -141,6 +141,38 @@ def test_report_device_cpu_runs_without_jax(tmp_path):
     assert out.read_bytes() == host.read_bytes() and out.stat().st_size > 0
 
 
+def test_index_warm_runs_without_jax(tmp_path):
+    """`index --warm --device cpu` (the engine and its warm span) imports no
+    jax either, and the `align` after it writes the golden bytes."""
+    shutil.copy(GOLD / "lib_base.json", tmp_path)
+    lib = str(tmp_path / "lib_base.json")
+    res = subprocess.run([sys.executable, "-c", SCRIPT, "index", "--reference", lib, "--warm", "--paired",
+                          "--device", "cpu"], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "LOADED []" in res.stdout and "Warmed the group engine on cpu" in res.stdout
+    _align_without_jax(tmp_path, [], "golden_base.tsv")
+
+
+def test_report_distributed_cpu_runs_without_jax(tmp_path):
+    """`report --distributed 2 --device cpu` (parallel/dist.py) imports no
+    jax either, and its counts equal the port's host report."""
+    from tests.test_torch_goldens import tagged_tsv
+
+    from nimble_tpu_torch.__main__ import main as port_cli
+
+    tagged = tagged_tsv(tmp_path / "tagged.tsv")
+    out, host = tmp_path / "dist.tsv", tmp_path / "host.tsv"
+    res = subprocess.run(
+        [sys.executable, "-c", SCRIPT, "report", "-i", tagged, "-o", str(out), "--distributed", "2",
+         "--device", "cpu"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "LOADED []" in res.stdout
+    assert port_cli(["report", "-i", tagged, "-o", str(host)]) == 0
+    assert out.read_bytes() == host.read_bytes() and out.stat().st_size > 0
+
+
 def _imports(path: pathlib.Path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):

@@ -108,3 +108,45 @@ def test_read_width_rebuild_matches_reference(ws):
                       batch_records=8) == 0
     assert ref_out.read_bytes().count(b"\n") > 20
     assert port_out.read_bytes() == ref_out.read_bytes()
+
+
+@pytest.mark.parametrize("n_items, fail", [(1, False), (2, False), (4, False), (4, True)],
+                         ids=["one", "two", "fills-the-queue", "error-after-filling"])
+def test_prefetch_delivers_the_end_to_a_lagging_consumer(n_items, fail):
+    """The BAM reader's prefetch thread ends a run however far its consumer
+    lags: a consumer that takes the first batch and then waits until the
+    reader has finished (the queue full, as when the first span waits for
+    the card) still gets every batch, then the end or the reader's error.
+    The reference drops the end marker on a full queue, and its consumer
+    then waits forever."""
+    import threading
+    import time
+
+    from nimble_tpu_torch.align.pipeline import _prefetch_iter
+
+    finished = threading.Event()
+
+    def gen():
+        yield from range(n_items)
+        finished.set()
+        if fail:
+            raise OSError("truncated BAM")
+
+    got, raised, done = [], [], threading.Event()
+
+    def consume():
+        it = _prefetch_iter(gen(), depth=3)
+        got.append(next(it))
+        finished.wait(5)
+        time.sleep(0.3)  # the producer is past its last item
+        try:
+            got.extend(it)
+        except OSError as e:
+            raised.append(e)
+        done.set()
+
+    t = threading.Thread(target=consume, daemon=True)
+    t.start()
+    t.join(10)
+    assert done.is_set(), "the consumer never saw the end of the batches"
+    assert got == list(range(n_items)) and len(raised) == int(fail)
