@@ -6,10 +6,10 @@ and on the mono probe (`--probe mono`, `num_mismatches` 1) against narrow
 libraries; on the wide banded group path (gband) against the 20k-allele
 HLA/KIR library; and on the other wide paths (monocls with class bands or
 class bits, groupcls, the wide two-choice probe); and three libraries at
-once through the stacked engine — and every other subcommand and flag that
-runs in one process (`index --warm`, `report --device` and `--distributed`,
-resumes, worlds, the profiler) on one CUDA card, after building and
-checking their kernels:
+once through the stacked engine — and every other subcommand and flag
+(`index --warm`, `report --device` and `--distributed`, resumes, worlds,
+the profiler, `align --mesh` and the coordinated world) on one CUDA card,
+after building and checking their kernels:
 
   1. device: card, power limit, torch/CUDA versions; the native host IO
      library (native/), built with the first compiler that can
@@ -161,6 +161,27 @@ checking their kernels:
      the host report's; rows/s beside --device's, the exchange's blk and
      buffer rows. `--distributed 2` on the one card must exit nonzero,
      naming the device count.
+ 24. `align --mesh` and the coordinated world: (a) `--mesh auto` (a 1 x 1
+     grid, through the engine's split, launch and concatenate path) on
+     phase 5's 1,048,576 reads and 262,144 BAM pairs, each TSV == phase
+     5's, walls beside phase 5's, the run log's `mesh` event printed; (b)
+     engines on make_mesh(n_data, n_feature, [cuda:0] x n) (distinct cards
+     where n are visible) for the grids
+     (2, 1), (1, 2) and (2, 2) on the first 16,384 reads of HLA-100 (the
+     group path on the data split, monocls at W = 4 on the feature split)
+     and of the 20k library off the group probe with its
+     class table as class_bits (monocls, the 579 MB table split in two on
+     the feature axis); the (2, 1) grid also on HLA-100's mono index
+     (mono_probe) and on the 20k library with its class bands
+     (band_tree_expand); every grid's score, pass_ and full bits (padding
+     words included) == the same grid on [cpu] x n with the plain
+     versions, the (2, 1) grids == the unmeshed cuda engine; each shard's
+     table bytes and plan_index_placement of the 20k index at the card's
+     memory printed; (c) a coordinated world of two CLI processes on
+     phase 5's reads (JAX_COORDINATOR_ADDRESS on a free port, gloo, both
+     on cuda:0): merged TSV == phase 5's, no shard or sentinel left, walls
+     beside phase 20 (b)'s world; (d) `--mesh data=2` on the one card
+     exits 1, names the one device and writes no file.
 On 13-17 the engine `align` builds must take the named path (the run log's
 `engine` event), kmer_keys == its plain version at the arguments it passes
 for the first chunk of the reads, and that chunk's step is timed by stage
@@ -192,6 +213,9 @@ made unimportable before anything else is imported. Its workloads come
 from the port's own generator (nimble_tpu_torch/bench_data.py).
 
 Usage: python3 chip_smoke.py   (from the repository root; needs one card)
+       python3 chip_smoke.py --mesh-only   (phases 1-3, 5, 9 and 24; with
+       several cards visible, phase 24's grids take distinct cards and
+       `--mesh auto` all of them)
 """
 import sys
 
@@ -199,6 +223,7 @@ sys.modules["jax"] = None  # the port must never import jax: any attempt raises 
 sys.modules["nimble_tpu"] = None  # nor the JAX package
 
 import contextlib
+import copy
 import gzip
 import importlib.util
 import io
@@ -275,6 +300,13 @@ N_MONO_CUT = 262_144
 KILL_SPANS = 6
 MONO_KILL_SPANS = 3
 WORLD_KILL_SPANS = 3
+
+# `--mesh` and the coordinated world (phase 24): (b)'s reads of each
+# workload, its grids of the one card, and every (b) engine's chunk, on the
+# card and on the CPU
+N_MESH_READS = 16_384
+MESH_GRIDS = ((2, 1), (1, 2), (2, 2))
+MESH_CHUNK = 8_192
 
 # seconds a phase 20 subprocess may run (its stacks are printed if it
 # hangs), and process 0's wait for the other shards
@@ -1662,20 +1694,38 @@ def decode_shard_lines(label: str, outs, n: int) -> None:
             raise AssertionError(f"{label}: process {p} parsed {parsed} and skipped {skipped} of {n}")
 
 
+WORLD_WALLS = {}  # label -> the world's wall, for later phases to print beside their own
+
+
+def free_port() -> int:
+    """A free TCP port on 127.0.0.1 (the coordinator's)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def world(label: str, args, n_proc: int, n: int, want: str, path: str, kernels, d: str, env=None,
-          kill0: int = 0):
-    """A world of n_proc processes of `align`, launched together; process 0
-    killed after kill0 of its spans when kill0 > 0 (then no merge yet).
-    Otherwise the merged TSV must equal `want` and no shard file may stay.
-    Returns (outputs, RESULT dicts, the world's wall: first launch to
-    process 0's exit, process 0's run log events)."""
+          kill0: int = 0, coordinated: bool = False):
+    """A world of n_proc processes of `align`, launched together, ranked by
+    NIMBLE_TPU_NUM_PROCS / NIMBLE_TPU_PROC_ID, or with `coordinated` by a
+    coordinator (JAX_COORDINATOR_ADDRESS on a free port, JAX_NUM_PROCESSES,
+    JAX_PROCESS_ID); process 0 killed after kill0 of its spans when kill0 >
+    0 (then no merge yet). Otherwise the merged TSV must equal `want` and
+    no shard file may stay. Returns (outputs, RESULT dicts, the world's
+    wall: first launch to process 0's exit, process 0's run log events)."""
     out = args[args.index("--output") + 1]
-    procs = [start_align(f"{label} p{p}", args, {"NIMBLE_TPU_NUM_PROCS": str(n_proc), "NIMBLE_TPU_PROC_ID": str(p),
-                                                 **(env or {}), **({"KILL_AFTER_EMITS": str(kill0)} if kill0 and p == 0
-                                                                   else {})}, d)
+    addr = f"127.0.0.1:{free_port()}"
+    ranks = [{"JAX_COORDINATOR_ADDRESS": addr, "JAX_NUM_PROCESSES": str(n_proc), "JAX_PROCESS_ID": str(p)}
+             if coordinated else {"NIMBLE_TPU_NUM_PROCS": str(n_proc), "NIMBLE_TPU_PROC_ID": str(p)}
+             for p in range(n_proc)]
+    procs = [start_align(f"{label} p{p}", args, {**ranks[p], **(env or {}),
+                                                 **({"KILL_AFTER_EMITS": str(kill0)} if kill0 and p == 0 else {})}, d)
              for p in range(n_proc)]
     rcs = [9 if kill0 and p == 0 else 0 for p in range(n_proc)]
     wall = wait_procs(procs, rcs)[0]  # process 0 was launched first
+    WORLD_WALLS[label] = wall
     results = [check_align(pr, path, kernels, rc) for pr, rc in zip(procs, rcs)]
     if kill0:
         return [r[0] for r in results], [r[1] for r in results], wall, results[0][2]
@@ -1980,7 +2030,234 @@ def phase_distributed(work: str, reports):
     say("distributed", f"(23) --distributed {n_dev + 1} on {n_dev} card(s) refused (exit 1): {want}")
 
 
-def main() -> int:
+def dense_out(out: dict, W: int) -> dict:
+    """An engine's outputs with dense `bits`, whatever its wire."""
+    from nimble_tpu_torch.align.engine import expand_band_rows_np, ids_to_bits_np
+
+    if "band_rows" in out:
+        Pw, Wm = out.pop("band_meta")
+        out["bits"] = expand_band_rows_np(out.pop("band_rows"), Pw, Wm)
+    if "ids" in out:
+        out["bits"] = ids_to_bits_np(out.pop("ids"), W)
+    return out
+
+
+def last_event(name: str) -> dict:
+    """The run log's last `name` event."""
+    return [e for e in run_events(os.environ["NIMBLE_TPU_RUNLOG"]) if e["event"] == name][-1]
+
+
+def mesh_grids(tag: str, index, config, codes, lens, grids, kernels, group_probe=None):
+    """Phase 24 (b) on one workload: for each grid, an engine on
+    make_mesh(n_data, n_feature, devices) (its launches counted from zero),
+    the devices cuda:0 .. cuda:n-1 where n cards are visible, else cuda:0
+    n times, and the same grid on [cpu] * n with the plain versions;
+    score, pass_ and the full bits, padding words included, must agree
+    exactly, and the (2, 1) grid must equal the unmeshed cuda engine.
+    Returns (summed launch counts, max |diff|)."""
+    from nimble_tpu_torch.align import kernels as K
+    from nimble_tpu_torch.align.engine import AlignEngine
+    from nimble_tpu_torch.align.pipeline import _round_len
+    from nimble_tpu_torch.parallel.mesh import make_mesh
+
+    wrappers = {"kmer_keys": K.kmer_keys, "mono_probe": K.mono_probe, "band_tree_expand": K.band_tree_expand}
+    counts = {k: 0 for k in wrappers}
+    W = index.bitset_words
+    L = _round_len(READ_LEN)
+    dev = torch.device("cuda", 0)
+    cards = torch.cuda.device_count()
+
+    def build(grid, d):
+        t0 = time.perf_counter()
+        n = 0 if grid is None else grid[0] * grid[1]
+        devices = [torch.device("cuda", i) for i in range(n)] if d.type == "cuda" and n <= cards else [d] * n
+        mesh = None if grid is None else make_mesh(*grid, devices)
+        eng = AlignEngine(index, config, d, chunk_size=MESH_CHUNK, max_len=L, group_probe=group_probe, mesh=mesh)
+        return eng, time.perf_counter() - t0
+
+    max_err = 0
+    for grid in grids:
+        eng, t_build = build(grid, dev)
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        got = dense_out(eng.align_batch(codes, lens), W)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for k, w in wrappers.items():
+            counts[k] += w.launches
+        ran = {k: w.launches for k, w in wrappers.items()}
+        for k in kernels:
+            if ran[k] <= 0:
+                raise AssertionError(f"(24) {tag} {grid}: the grid never launched the {k} kernel")
+        path, shard_bytes, chunk, held = eng.path, eng.shard_table_bytes, eng.chunk_size, eng.table_bytes
+        where = [str(x) for x in eng.mesh.devices]
+        del eng
+        torch.cuda.empty_cache()
+        cpu, t_cpu_build = build(grid, torch.device("cpu"))
+        t0 = time.perf_counter()
+        want = dense_out(cpu.align_batch(codes, lens), W)
+        cpu_wall = time.perf_counter() - t0
+        del cpu
+        W_pad = -(-W // grid[1]) * grid[1]
+        if got["bits"].shape != (codes.shape[0], W_pad):
+            raise AssertionError(f"(24) {tag} {grid}: bits {got['bits'].shape}, not ({codes.shape[0]}, {W_pad})")
+        for k in ("score", "pass_", "bits"):
+            err = int(np.abs(got[k].astype(np.int64) - want[k].astype(np.int64)).max())
+            max_err = max(max_err, err)
+            if err:
+                raise AssertionError(f"(24) {tag} {grid}: {k} on the card differs from the CPU grid's (max |diff| {err})")
+        extra = ""
+        if grid == (2, 1):
+            base, _ = build(None, dev)
+            alone = dense_out(base.align_batch(codes, lens), W)
+            del base
+            torch.cuda.empty_cache()
+            if not all(np.array_equal(alone[k], got[k]) for k in ("score", "pass_", "bits")):
+                raise AssertionError(f"(24) {tag} (2, 1): the grid differs from the unmeshed cuda engine")
+            extra = "; == the unmeshed cuda engine"
+        say("mesh", f"(24b) {tag} grid {grid[0]}x{grid[1]} on {where}: path {path}, chunk "
+            f"{chunk}, W {W} -> {W_pad}, shards' table bytes {[round(b / 1e6, 1) for b in shard_bytes]} MB "
+            f"({held / 1e6:.1f} MB held on the cards); build "
+            f"{t_build:.2f} s, {codes.shape[0]} reads {wall:.3f} s, launches {ran}; == the same grid on [cpu] x "
+            f"{grid[0] * grid[1]} (build {t_cpu_build:.2f} s, run {cpu_wall:.2f} s): score, pass_ and bits with "
+            f"padding, {int(got['pass_'].sum())} passing{extra}")
+    return counts, max_err
+
+
+def phase_mesh(work: str, lib: str, fq: str, bam: str, pout: str, se_wall: float, wlib: str, wfq: str):
+    """Phase 24: `align --mesh` and the coordinated world on the one card.
+    (a) `--mesh auto` (a 1 x 1 grid) on phase 5's reads and BAM pairs, each
+    TSV == phase 5's; (b) grids (2, 1), (1, 2) and (2, 2) of cuda:0 on the
+    first N_MESH_READS reads of HLA-100 (group, and monocls at W = 4 on the
+    feature split), of HLA-100's mono index ((2, 1): mono_probe), and of
+    the 20k library off the group probe over class_bits (monocls, its class table split on the feature axis)
+    and with its class bands ((2, 1): band_tree_expand), each held against
+    the same grid of CPU shards and (2, 1) against the unmeshed engine; (c)
+    a coordinated world of two CLI processes on phase 5's reads, merged TSV
+    == phase 5's; (d) `--mesh
+    data=N+1` on N cards exits 1. Returns the in-process runs' summed launch
+    counts and (b)'s max |diff| by kernel."""
+    from nimble_tpu_torch import kernel_bench as KB
+    from nimble_tpu_torch.align import tables as TT
+    from nimble_tpu_torch.align.pipeline import _round_len, make_runner
+    from nimble_tpu_torch.config import load_library
+    from nimble_tpu_torch.index.builder import build_index
+    from nimble_tpu_torch.parallel.mesh import plan_index_placement
+
+    t_phase = time.perf_counter()
+    d = os.path.join(work, "p24")
+    os.makedirs(d)
+    cores = str(os.cpu_count() or 1)
+    half = str(max(1, (os.cpu_count() or 1) // 2))
+    se_want = os.path.join(work, "se", "out.tsv")
+    counts = []
+
+    # (a) --mesh auto: one shard on the one card, through the split path
+    a_se = os.path.join(d, "a_se.tsv")
+    wall, _, c = drive("(24a) --mesh auto, group single-end reads", ["--reference", lib, "--output", a_se, "--input",
+                                                                     fq, "-c", cores, "--mesh", "auto"],
+                       N_READS, ["kmer_keys"], path="group")
+    counts.append(c)
+    span = last_event("engine")["chunk_size"]
+    mesh_ev = last_event("mesh")
+    rows = same_file("(24a) --mesh auto single-end TSV", a_se, se_want)
+    a_pe = os.path.join(d, "a_pe.tsv")
+    pe_wall, _, c = drive("(24a) --mesh auto, group BAM pairs", ["--reference", lib, "--output", a_pe, "--input", bam,
+                                                                "-c", cores, "--mesh", "auto"],
+                          N_PAIRS, ["kmer_keys"], path="group")
+    counts.append(c)
+    pe_rows = same_file("(24a) --mesh auto pairs TSV", a_pe, pout)
+    say("mesh", f"(24a) the mesh event: {json.dumps({k: mesh_ev[k] for k in ('n_data', 'n_feature', 'devices')})}; "
+        f"TSVs == phase 5's ({rows} and {pe_rows} rows); walls {wall:.2f} s (phase 5: {se_wall:.2f} s) and "
+        f"{pe_wall:.2f} s for the pairs")
+
+    # (c) a coordinated world of two on phase 5's reads, as phase 20 (b)'s
+    # world but ranked by the coordinator
+    wenv = {"NIMBLE_TPU_READER_BATCH": str(span // 2)}
+    c_args = ["--reference", lib, "--output", os.path.join(d, "c.tsv"), "--input", fq, "-c", half]
+    try:
+        outs, res, cwall, _ = world("(24c) coordinated world", c_args, 2, N_READS, se_want, "group", ["kmer_keys"],
+                                    d, wenv, coordinated=True)
+    finally:
+        for p in _PROCS:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    decode_shard_lines("(24c) coordinated world", outs, N_READS)
+    say("mesh", f"(24c) coordinated world of 2 (JAX_COORDINATOR_ADDRESS, gloo): {cwall:.2f} s (p0 "
+        f"{res[0]['wall_s']:.2f} s and p1 {res[1]['wall_s']:.2f} s inside main); phase 20 (b)'s "
+        f"NIMBLE_TPU_NUM_PROCS world {WORLD_WALLS.get('(b) world', float('nan')):.2f} s")
+
+    # (d) a grid larger than the visible cards
+    from nimble_tpu_torch.__main__ import main as port_main
+
+    n_dev = torch.cuda.device_count()
+    out = os.path.join(d, "refused.tsv")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = port_main(["align", "--reference", lib, "--output", out, "--input", fq, "--mesh", f"data={n_dev + 1}",
+                        "--device", "cuda"])
+    want = (f"needs {n_dev + 1} devices, and {n_dev} {'is' if n_dev == 1 else 'are'} visible: "
+            f"{[f'cuda:{i}' for i in range(n_dev)]}")
+    if rc != 1 or want not in err.getvalue() or os.path.exists(out):
+        raise AssertionError(f"(24d) --mesh data={n_dev + 1} did not refuse as it should (exit {rc}):\n"
+                             f"{err.getvalue()[-2000:]}")
+    say("mesh", f"(24d) --mesh data={n_dev + 1} on {n_dev} card(s): exit 1, no file; {want}")
+
+    # (b) grids of the one card against the same grids of CPU shards; the
+    # monocls host tables are built once per index and shared by every
+    # engine (they are not changed by the engines)
+    L = _round_len(READ_LEN)
+    codes, lens = KB.fastq_head(fq, N_MESH_READS, L)
+    wcodes, wlens = KB.fastq_head(wfq, N_MESH_READS, L)
+    memo = {}
+    build_monocls = TT.build_monocls_tables
+
+    def monocls_once(ix):
+        if id(ix.table_hi) not in memo:
+            memo[id(ix.table_hi)] = build_monocls(ix)
+        return memo[id(ix.table_hi)]
+
+    TT.build_monocls_tables = monocls_once
+    errs = {"kmer_keys": 0, "mono_probe": 0, "band_tree_expand": 0}
+    try:
+        r = make_runner(lib, os.devnull)
+        c, e = mesh_grids("HLA-100", r.index, r.config, codes, lens, MESH_GRIDS, ["kmer_keys"])
+        counts.append(c)
+        errs["kmer_keys"] = max(errs["kmer_keys"], e)
+        config, data = load_library(lib)
+        mono_ix = build_index(data, config, group_g=0)  # in memory: the sidecar keeps the group index
+        c, e = mesh_grids("HLA-100 mono index", mono_ix, config, codes, lens, [(2, 1)], ["kmer_keys", "mono_probe"])
+        counts.append(c)
+        errs["mono_probe"] = max(errs["mono_probe"], e)
+        w = make_runner(wlib, os.devnull)
+        plan = plan_index_placement(w.index, n_chips=2, device=torch.device("cuda", 0))
+        say("mesh", f"(24b) plan_index_placement of the 20k index at this card's "
+            f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f} GiB: {json.dumps(plan)}")
+        bits_ix = copy.copy(w.index)
+        bits_ix._torch_class_bands = None  # the class table as class_bits, split on the feature axis
+        c, e = mesh_grids("20k library, class_bits", bits_ix, w.config, wcodes, wlens, MESH_GRIDS, ["kmer_keys"],
+                          group_probe=False)
+        counts.append(c)
+        errs["kmer_keys"] = max(errs["kmer_keys"], e)
+        c, e = mesh_grids("20k library, class bands", w.index, w.config, wcodes, wlens, [(2, 1)],
+                          ["kmer_keys", "band_tree_expand"], group_probe=False)
+        counts.append(c)
+        errs["band_tree_expand"] = max(errs["band_tree_expand"], e)
+        memo.clear()
+        del r, w, bits_ix, mono_ix
+    finally:
+        TT.build_monocls_tables = build_monocls
+    say("mesh", f"phase 24 in {time.perf_counter() - t_phase:.1f} s")
+    return {k: sum(c[k] for c in counts) for k in counts[0]}, errs
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--mesh-only"]):
+        print("usage: python3 chip_smoke.py [--mesh-only]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA card",
               file=sys.stderr)
@@ -1996,6 +2273,14 @@ def main() -> int:
         name, _smi = phase_device()
         phase_build()
         lib, fq = phase_data(work)
+        if argv:
+            # phase 24 alone, with the phases whose files it reads (5, 9):
+            # on a machine of several cards its grids take distinct cards
+            bam, pout, se_wall, _, _ = phase_main_path(work, name, lib, fq)
+            wlib, wfq = phase_wide_data(work)[:2]
+            print(json.dumps({"mesh_only": phase_mesh(work, lib, fq, bam, pout, se_wall, wlib, wfq)}))
+            say("done", f"phases 1-3, 5, 9 and 24 passed in {time.perf_counter() - t_start:.1f} s")
+            return 0
         kk_err, kk_ms, kk_plain, kk_bound = phase_kernel(lib, fq)
         phase_goldens(work)
         bam, pout, se_wall, group_counts, pairs = phase_main_path(work, name, lib, fq)
@@ -2016,21 +2301,23 @@ def main() -> int:
         pipeline_counts = phase_pipeline(work, lib, pairs, bam, pout)
         profile_counts = phase_profile(work, cmp_lib, cmp_fq)
         phase_distributed(work, reports)
+        mesh_counts, mesh_errs = phase_mesh(work, lib, fq, bam, pout, se_wall, wlib, wfq)
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     # no single PyTorch call computes any of these functions: library_ms null
     # times and bounds at each kernel's main path; launches summed over
     # every path's runs, errors over every check
     runs = (group_counts, mono_counts, wide_counts, cls_counts, stacked_counts, resume_counts, pipeline_counts,
-            profile_counts)
+            profile_counts, mesh_counts)
     kernels = [
         ("kmer_keys", "nimble_tpu/align/kernels.py:157", sum(c["kmer_keys"] for c in runs),
-         max(kk_err, cls_err, st_err), kk_ms, kk_plain, kk_bound),
+         max(kk_err, cls_err, st_err, mesh_errs["kmer_keys"]), kk_ms, kk_plain, kk_bound),
         ("mono_probe", "nimble_tpu/align/kernels.py:273",
-         mono_counts["mono_probe"] + stacked_counts["mono_probe"] + resume_counts["mono_probe"],
-         max(mp_err, st_err), mp_ms, mp_plain, mp_bound),
+         mono_counts["mono_probe"] + stacked_counts["mono_probe"] + resume_counts["mono_probe"]
+         + mesh_counts["mono_probe"], max(mp_err, st_err, mesh_errs["mono_probe"]), mp_ms, mp_plain, mp_bound),
         ("band_tree_expand", "nimble_tpu/align/kernels.py:394",
-         wide_counts["band_tree_expand"] + cls_counts["band_tree_expand"] + resume_counts["band_tree_expand"],
-         max(bt_err, *(b[0] for b in cls_bands)), bt_ms, bt_plain, bt_bound),
+         wide_counts["band_tree_expand"] + cls_counts["band_tree_expand"] + resume_counts["band_tree_expand"]
+         + mesh_counts["band_tree_expand"], max(bt_err, mesh_errs["band_tree_expand"], *(b[0] for b in cls_bands)),
+         bt_ms, bt_plain, bt_bound),
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"nimble_tpu_torch/csrc/{name}.cu", "replaces": replaces,

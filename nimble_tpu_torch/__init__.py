@@ -21,7 +21,8 @@ k+g-1), with the two-choice inline probe as the mono path's fallback; and
 on wide libraries (W > 16) that can be banded, on the banded group path
 (gband), and the other wide paths (groupcls, monocls, the wide two-choice
 probe); several libraries at once through the stacked engine (one merged
-probe answers every library). Three hand-written CUDA kernels run on the card — the window stage
+probe answers every library); on a data x feature mesh of devices
+(`--mesh`) and in worlds of processes, coordinated or not. Three hand-written CUDA kernels run on the card — the window stage
 (csrc/kmer_keys.cu), the fused mono probe (csrc/mono_probe.cu) and the
 gband band-row intersection (csrc/band_tree_expand.cu) — and their plain
 torch versions on the CPU.
@@ -44,6 +45,10 @@ Modules (named after their reference counterparts):
   nimble_tpu_torch.align.stacked   — the stacked multi-library engine
   nimble_tpu_torch.align.host_probe— host mono repair for short reads
   nimble_tpu_torch.align.pipeline  — the `align` orchestration
+  nimble_tpu_torch.parallel.mesh   — `--mesh`: the device grid, table
+                                     placement
+  nimble_tpu_torch.parallel.dist   — `report --distributed`, the
+                                     coordinated world's process group
 """
 
 __version__ = "0.1.0"

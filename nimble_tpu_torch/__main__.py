@@ -11,18 +11,14 @@ under `--device cpu`). `index --warm` builds and saves the index, then
 builds the engine the first `align` would build on `--device` and runs one
 span through it. `generate`, `fastq-to-bam`, `plot`, `index` and `download`
 run the port's own copies of the reference's host modules; nothing here
-imports nimble_tpu. `align --mesh` and a JAX_COORDINATOR_ADDRESS are not
-ported yet and exit non-zero naming their ROADMAP item.
+imports nimble_tpu. `align --mesh` runs on a data x feature grid of devices
+(parallel/mesh.py), and JAX_COORDINATOR_ADDRESS starts a coordinated world
+of align processes over torch.distributed (parallel/dist.py).
 """
 from __future__ import annotations
 
 import argparse
 import sys
-
-
-def _unported(msg: str) -> int:
-    print(f"nimble_tpu_torch: {msg}", file=sys.stderr)
-    return 2
 
 
 def _ensure_native() -> None:
@@ -75,8 +71,15 @@ def main(argv=None) -> int:
         help="Continue an interrupted run from its <output>.progress.json "
              "sidecar (in a world, each process from its own shard's).",
     )
-    align_parser.add_argument("--mesh", type=str, default="",
-                              help="Not ported (ROADMAP Queue 1 item 8).")
+    align_parser.add_argument(
+        "--mesh", type=str, default="",
+        help="Device mesh spec: 'data=N[,feature=M]', a bare N, 'feature=M' "
+             "or 'auto'. On cuda the grid takes the visible cards "
+             "(cuda:0..n-1; 'auto' and a data axis left out fill them) and a "
+             "grid larger than they are exits 1. On cpu an explicit data=N "
+             "takes exactly N*M CPU shards, and 'auto' or a data axis left "
+             "out takes one data shard.",
+    )
     align_parser.add_argument(
         "--probe", type=str, default="group", choices=("group", "mono"),
         help="k-mer probe path: 'group' (default) probes one (k+g-1)-mer per "
@@ -167,13 +170,9 @@ def main(argv=None) -> int:
         generate(args.file, args.opt_file, args.output_path)
         return 0
     if args.subcommand == "align":
-        from nimble_tpu_torch.align.pipeline import align_files, refuse_unported
+        from nimble_tpu_torch.align.pipeline import align_files
         from nimble_tpu_torch.device import resolve_device
 
-        try:
-            refuse_unported(mesh=args.mesh)
-        except NotImplementedError as e:
-            return _unported(str(e))
         return align_files(
             args.reference,
             args.output,
@@ -186,6 +185,7 @@ def main(argv=None) -> int:
             trim=args.trim,
             num_cores=args.num_cores,
             probe=args.probe,
+            mesh=args.mesh,
         )
     if args.subcommand == "report":
         from nimble_tpu_torch.report.tsv import report

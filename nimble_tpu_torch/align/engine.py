@@ -857,14 +857,33 @@ def class_probe(keys, lens, L: int, tables, p: AlignParams):
     return torch.where(use_fwd[:, None], cls_f, cls_r), torch.where(use_fwd, score_f, score_r), score_f, score_r
 
 
+def intersect_class_slices(cls_sel: torch.Tensor, slices) -> torch.Tensor:
+    """The feature axis of a mesh: intersect_class_bits once per column
+    slice of the padded class bitsets, each on its slice's device over a
+    copy of the selected class ids, the (B, W_pad / M) results concatenated
+    along the words on the ids' device. Exact, because the AND is
+    elementwise over words; a slice of at most 32 words takes the gather
+    branch even where W is wide, which gives the same bits."""
+    lead = cls_sel.device
+    parts = []
+    for cb in slices:
+        ids = cls_sel.to(cb.device)
+        parts.append(intersect_class_bits(ids, ids >= 0, cb).to(lead))
+    return torch.cat(parts, dim=1)
+
+
 def intersect_classes(cls_sel, tables) -> torch.Tensor:
     """The intersection stage of the class-id paths: the selected classes'
     bitsets ANDed, over their band rows where the strict class bands were
-    shipped (`intersect_class_bands`), else over `class_bits`
-    (`intersect_class_bits`; always so on groupcls)."""
+    shipped (`intersect_class_bands`; under a feature-split mesh whole on
+    the row's lead device, expanded to the padded width), else over the
+    feature slices of a mesh (`intersect_class_slices`), else over
+    `class_bits` (`intersect_class_bits`; always so on groupcls)."""
     if "class_band" in tables:
         return intersect_class_bands(cls_sel, cls_sel >= 0, tables["class_page"], tables["class_band"],
                                      table_words(tables))
+    if "class_slices" in tables:
+        return intersect_class_slices(cls_sel, tables["class_slices"])
     return intersect_class_bits(cls_sel, cls_sel >= 0, tables["class_bits"])
 
 
@@ -966,27 +985,54 @@ def combine_mates(p: AlignParams, r1_lens, m1, r2_lens=None, m2=None):
 class ChunkDispatch:
     """The chunked dispatch that AlignEngine and the stacked engine share
     (engine.py:AlignEngine's `_pad`, align_batch_async and
-    align_packed_async): a host batch is cut into fixed-shape chunks of
-    `chunk_size` reads, padded with N codes and zero lengths, moved to
-    `device` and handed to the engine's `_step(r1_codes, r1_lens[, r2_codes,
-    r2_lens])`, which returns (flat tensor, wire tag). A packed-wire batch
-    (io.packing.pack_batch) is unpacked on the device with its dense N
-    flags. Each pending entry is (flat tensor, wire tag, valid rows)."""
+    align_packed_async, with its mesh branch): a host batch is cut into
+    fixed-shape chunks of `chunk_size` reads, padded with N codes and zero
+    lengths. Each chunk is cut into one row block per shard (`shards`: a
+    (lead device, tables) pair per data row of the mesh, else the one pair
+    (device, tables)); block d moves to shard d's device and goes through
+    the engine's `_step(tables_d, r1_codes, r1_lens[, r2_codes, r2_lens])`,
+    which returns (flat tensor, wire tag). Every shard's step is launched
+    before any is collected. A packed-wire batch (io.packing.pack_batch) is
+    unpacked on the device with its dense N flags. Each pending entry is
+    ([flat tensor per shard], wire tag, valid rows of the chunk)."""
 
     device: torch.device
     chunk_size: int
     max_len: int
     paired: bool
     tables: dict
+    shards: list
 
     @property
     def table_bytes(self) -> int:
-        """Bytes of the tables on the engine's device."""
-        return sum(t.numel() * t.element_size() for t in self.tables.values() if isinstance(t, torch.Tensor))
+        """Bytes of the tables on the engine's devices, each tensor counted
+        once (several shards on one device share one copy)."""
+        seen = {}
+        for _, tables in self.shards:
+            for t in _tensors(tables):
+                seen[(t.device, t.data_ptr())] = t.numel() * t.element_size()
+        return sum(seen.values())
+
+    @property
+    def shard_table_bytes(self) -> list:
+        """Bytes of each shard's tables, its class slices included."""
+        return [sum(t.numel() * t.element_size() for t in _tensors(tables)) for _, tables in self.shards]
 
     def _check_max_len(self) -> None:
         if self.max_len > MAX_LEN_LIMIT:
             raise ValueError(f"max_len {self.max_len} > {MAX_LEN_LIMIT} (packed uint16 scores)")
+
+    def _place(self, tables: dict, mesh) -> None:
+        """Set `tables` and `shards`: one-device tables on `device`, or,
+        under a mesh, one table set per data row (parallel/mesh.py:
+        shard_tables), `tables` being data row 0's."""
+        if mesh is None:
+            self.shards = [(self.device, tables)]
+        else:
+            from nimble_tpu_torch.parallel.mesh import shard_tables
+
+            self.shards = list(zip([mesh.lead(d) for d in range(mesh.n_data)], shard_tables(tables, mesh)))
+        self.tables = self.shards[0][1]
 
     def _pad(self, arr, n, fill):
         if arr.shape[0] == n:
@@ -994,30 +1040,59 @@ class ChunkDispatch:
         pad_width = [(0, n - arr.shape[0])] + [(0, 0)] * (arr.ndim - 1)
         return np.pad(arr, pad_width, constant_values=fill)
 
-    def _to_dev(self, a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device).to(dtype)
+    @staticmethod
+    def _to_dev(a: np.ndarray, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev).to(dtype)
+
+    def _launch(self, mates, valid: int):
+        """One chunk of host arrays, per mate (codes, lens) or packed
+        (words, lens, dense N flags), each of chunk_size rows -> a pending
+        entry: the chunk's row block d through shard d's step on its
+        device, every shard launched before any result is read."""
+        Cd = self.chunk_size // len(self.shards)
+        flats, wire = [], None
+        for d, (dev, tables) in enumerate(self.shards):
+            rows = slice(d * Cd, (d + 1) * Cd)
+            args = []
+            for arrays in mates:
+                if len(arrays) == 3:
+                    words, lens, nflags = (a[rows] for a in arrays)
+                    codes = unpack_reads(self._to_dev(words, dev, torch.int32), self.max_len,
+                                         self._to_dev(nflags, dev, torch.int32))
+                else:
+                    codes, lens = arrays[0][rows], arrays[1][rows]
+                    codes = self._to_dev(codes, dev, torch.int8)
+                args += [codes, self._to_dev(lens, dev, torch.int32)]
+            flat, wire = self._step(tables, *args)
+            flats.append(flat)
+        return flats, wire, valid
+
+    def _host_shards(self, pending):
+        """Copy each pending entry's shard outputs to host numpy, in shard
+        order -> (array, wire tag, the shard's valid rows, its rows): shard
+        d of a chunk with `valid` rows holds clamp(valid - d Cd, 0, Cd). A
+        bare tensor in an entry's place is one shard of the whole chunk."""
+        for flats, wire, valid in pending:
+            flats = [flats] if isinstance(flats, torch.Tensor) else flats
+            Cd = self.chunk_size // len(flats)
+            for d, flat in enumerate(flats):
+                yield flat.cpu().numpy(), wire, min(max(valid - d * Cd, 0), Cd), Cd
 
     def align_batch_async(self, r1_codes: np.ndarray, r1_lens: np.ndarray,
                           r2_codes: Optional[np.ndarray] = None,
                           r2_lens: Optional[np.ndarray] = None):
         """Dispatch a host batch of int8 codes chunk by chunk (no wait).
-        Returns [(flat device tensor, wire tag, valid rows)] for
+        Returns [([flat device tensor per shard], wire tag, valid rows)] for
         collect_async."""
         n = r1_codes.shape[0]
         C = self.chunk_size
         pending = []
         for start in range(0, n, C):
             end = min(start + C, n)
-            args = [
-                self._to_dev(self._pad(r1_codes[start:end], C, N_CODE), torch.int8),
-                self._to_dev(self._pad(r1_lens[start:end], C, 0), torch.int32),
-            ]
+            mates = [(self._pad(r1_codes[start:end], C, N_CODE), self._pad(r1_lens[start:end], C, 0))]
             if self.paired:
-                args += [
-                    self._to_dev(self._pad(r2_codes[start:end], C, N_CODE), torch.int8),
-                    self._to_dev(self._pad(r2_lens[start:end], C, 0), torch.int32),
-                ]
-            pending.append((*self._step(*args), end - start))
+                mates.append((self._pad(r2_codes[start:end], C, N_CODE), self._pad(r2_lens[start:end], C, 0)))
+            pending.append(self._launch(mates, end - start))
         return pending
 
     def align_packed_async(self, pb: dict):
@@ -1026,24 +1101,21 @@ class ChunkDispatch:
         align_batch_async."""
         n = pb["r1_words"].shape[0]
         C = self.chunk_size
-        L = self.max_len
-        Lf = (L + 31) // 32
+        Lf = (self.max_len + 31) // 32
         pending = []
         for start in range(0, n, C):
             end = min(start + C, n)
-            args = []
+            mates = []
             for mate in ("r1", "r2") if self.paired else ("r1",):
-                w = self._pad(pb[f"{mate}_words"][start:end], C, 0)
-                lens = self._pad(pb[f"{mate}_lens"][start:end], C, 0)
                 nidx = pb[f"{mate}_nidx"]
                 nrows = pb[f"{mate}_nrows"]
                 lo = int(np.searchsorted(nidx, start))
                 hi = int(np.searchsorted(nidx, end))
                 dense = np.zeros((C, Lf), dtype=np.int32)
                 dense[nidx[lo:hi] - start] = nrows[lo:hi]
-                codes = unpack_reads(self._to_dev(w, torch.int32), L, self._to_dev(dense, torch.int32))
-                args += [codes, self._to_dev(lens, torch.int32)]
-            pending.append((*self._step(*args), end - start))
+                mates.append((self._pad(pb[f"{mate}_words"][start:end], C, 0),
+                              self._pad(pb[f"{mate}_lens"][start:end], C, 0), dense))
+            pending.append(self._launch(mates, end - start))
         return pending
 
     def align_batch(self, r1_codes: np.ndarray, r1_lens: np.ndarray,
@@ -1053,11 +1125,34 @@ class ChunkDispatch:
         return self.collect_async(self.align_batch_async(r1_codes, r1_lens, r2_codes, r2_lens))
 
 
+def _tensors(tables: dict):
+    """The tensors of a table set, a mesh's class slices included."""
+    for v in tables.values():
+        if isinstance(v, torch.Tensor):
+            yield v
+        elif isinstance(v, tuple):
+            yield from (t for t in v if isinstance(t, torch.Tensor))
+
+
 class AlignEngine(ChunkDispatch):
-    """Single-device alignment engine over fixed-shape chunks
-    (engine.py:2698) on any path of the reference's (group, gband, groupcls,
-    mono, monocls or either two-choice probe), chosen as the reference
-    chooses it.
+    """Alignment engine over fixed-shape chunks (engine.py:2698) on any path
+    of the reference's (group, gband, groupcls, mono, monocls or either
+    two-choice probe), chosen as the reference chooses it, on one device or
+    on a mesh (parallel/mesh.py).
+
+    Under a mesh (engine.py:2758-2776) the chunk is rounded up to a multiple
+    of n_data and each data row runs a one-device step on its lead device
+    (ChunkDispatch), the same code for a 1 x 1 grid. A feature split
+    (n_feature > 1) builds the tables the reference builds for it
+    (device_tables with inline_ok and group_ok off: monocls or the wide
+    two-choice bucket at every W) and intersects each column slice of the
+    class bitsets on its own device (`intersect_class_slices`); the bits
+    are W_pad = ceil(W / M) M words wide, the padding words zero, and
+    `table_words` says W_pad. Where the class bands are shipped, the banded
+    intersection runs whole on the lead device and expands to W_pad. The
+    window kernel runs on every shard (the reference turns its Pallas
+    window stage off under a mesh for its SPMD partitioner; the output is
+    the same).
 
     The output wire (`wire`) is static per engine and tags every dispatched
     chunk: "full" (`pack_outputs`, (B, W+3)) on every path but gband, and
@@ -1078,10 +1173,13 @@ class AlignEngine(ChunkDispatch):
         paired: bool = False,
         group_probe: Optional[bool] = None,
         chunk_cap: Optional[int] = None,
+        mesh=None,
     ):
         self.index = index
         self.config = config
-        self.device = torch.device(device)
+        self.mesh = mesh
+        # under a mesh the grid's devices replace `device`
+        self.device = torch.device(device) if mesh is None else mesh.lead(0)
         self.params = AlignParams.from_config(config, index, strand_filter)
         self.max_len = max(max_len, index.k)
         self.paired = paired
@@ -1101,11 +1199,16 @@ class AlignEngine(ChunkDispatch):
         )
         if group_probe is not None:
             group_ok = group_ok and group_probe
-        self.tables = device_tables(index, self.device, group_ok=group_ok)
-        gband = "gband_bucket" in self.tables
-        if gband or "group_bucket" in self.tables or "groupcls_bucket" in self.tables:
+        # inlined bitsets cannot split over the feature axis: a feature
+        # split takes the separate class table (engine.py:2765-2770)
+        if mesh is not None and mesh.n_feature > 1:
+            group_ok = False
+        tables = device_tables(index, self.device, group_ok=group_ok,
+                               inline_ok=mesh is None or mesh.n_feature == 1)
+        gband = "gband_bucket" in tables
+        if gband or "group_bucket" in tables or "groupcls_bucket" in tables:
             self.params = replace(self.params, group_g=index.pair_g)
-        self.band_pw = int(self.tables["gband_band"].shape[1]) // 2 if gband else 0
+        self.band_pw = int(tables["gband_band"].shape[1]) // 2 if gband else 0
 
         if chunk_size is None:
             chunk_size = auto_chunk_size(index, self.max_len, paired, self.device, group_ok,
@@ -1113,7 +1216,10 @@ class AlignEngine(ChunkDispatch):
             if chunk_cap is not None and chunk_cap < chunk_size:
                 # a chunk larger than the read batches would pad every batch
                 chunk_size = max(1 << int(np.log2(max(chunk_cap, 1))), 1)
+        if mesh is not None:
+            chunk_size = -(-chunk_size // mesh.n_data) * mesh.n_data  # the chunk tiles the data axis
         self.chunk_size = chunk_size
+        self._place(tables, mesh)
 
         # the emission wire (engine.py:2931-2998)
         self.wire = "full"
@@ -1142,10 +1248,10 @@ class AlignEngine(ChunkDispatch):
         name = next(n for k, n in self.PATHS if k in self.tables)
         return name + " (class bands)" if "class_band" in self.tables else name
 
-    def _step(self, *args):
-        """One chunk through align_step and this engine's wire -> (flat
-        tensor, wire tag)."""
-        out = align_step(self.tables, self.params, *args)
+    def _step(self, tables, *args):
+        """One shard's rows through align_step on `tables` and this engine's
+        wire -> (flat tensor, wire tag)."""
+        out = align_step(tables, self.params, *args)
         if self.wire == "full":
             return pack_outputs(out), self.wire
         rows = compress_band_rows(out["bits"], self.band_pw)
@@ -1161,14 +1267,15 @@ class AlignEngine(ChunkDispatch):
         """Copy dispatched outputs to host numpy and unpack each chunk by
         the wire tag it was dispatched with: "full" gives dense `bits`,
         "band" gives `band_rows` with `band_meta` = (Pw, W), "idlist" gives
-        `ids` (engine.py:collect_async with expand_band=False)."""
+        `ids` (engine.py:collect_async with expand_band=False). A chunk's
+        shards are unpacked each with its own valid rows and concatenated
+        in shard order."""
         outs = []
         W = table_words(self.tables)
-        for flat, wire, valid in pending:
-            arr = flat.cpu().numpy()
+        for arr, wire, valid, rows in self._host_shards(pending):
             if wire == "idlist":
                 cap, _, packed16, hdr1 = self.idlist
-                outs.append(unpack_outputs_idlist(arr, self.chunk_size, cap, valid, packed16, hdr1))
+                outs.append(unpack_outputs_idlist(arr, rows, cap, valid, packed16, hdr1))
             elif wire == "band":
                 out = unpack_outputs(arr, 1 + 2 * self.band_pw, valid)
                 out["band_rows"] = out.pop("bits")

@@ -23,8 +23,16 @@ and `--resume` truncates at it and continues. NIMBLE_TPU_NUM_PROCS /
 NIMBLE_TPU_PROC_ID start a world of independent processes that own spans
 round-robin and write headerless shards, which process 0 splices back into
 reader order (_merge_shards). The port records the span in every sidecar
-and shard meta, and refuses a resume or a merge whose spans differ. It
-refuses `--mesh` and JAX_COORDINATOR_ADDRESS (ROADMAP Queue 1 item 8).
+and shard meta, and refuses a resume or a merge whose spans differ. Under
+JAX_COORDINATOR_ADDRESS (with JAX_NUM_PROCESSES and JAX_PROCESS_ID) the
+processes join a torch.distributed group (parallel/dist.py:
+init_distributed) that gives each its rank and the world's size, and the
+world runs as that one does.
+
+`--mesh` (parallel/mesh.py) runs every engine on a data x feature grid of
+devices: each chunk's row blocks on the data rows' lead devices, the class
+bitsets split over a row's devices on the feature axis. Under a coordinator
+each process's mesh spans the devices that process sees.
 """
 from __future__ import annotations
 
@@ -585,36 +593,41 @@ def _slice_reader_batch(batch: dict, start: int) -> dict:
 
 def _build_engines(runners: List[LibraryRunner], device: torch.device,
                    strand_filter: str, chunk_size: Optional[int], max_len: int,
-                   paired: bool, chunk_cap: Optional[int], log) -> Optional[StackedEngine]:
+                   paired: bool, chunk_cap: Optional[int], log, mesh_plan=None) -> Optional[StackedEngine]:
     """(Re)construct the engines at a given max read length
     (pipeline.py:_build_engines): one engine per library, or, when
     NIMBLE_TPU_STACK=1 opts in, ONE stacked engine for every library where
     the reference stacks them (several libraries, one trim,
-    StackedEngine.compatible), unless their stacked tables cannot be placed
-    (NotStackable, the run log's `stacked_engine` event with `refused`).
-    The run log's `engine` event says which path each engine took, its
-    chunk size, its table bytes and its wire; a stacked engine's also the
-    libraries it answers.
+    StackedEngine.compatible, no feature-split mesh), unless their stacked
+    tables cannot be placed (NotStackable, the run log's `stacked_engine`
+    event with `refused`). Every engine runs on `mesh_plan` when one is
+    given. The run log's `engine` event says which path each engine took,
+    its chunk size, its table bytes and its wire; a stacked engine's also
+    the libraries it answers; under a mesh also each shard's table bytes.
     Returns the stacked engine, or None (engines on the runners)."""
+    meshed = {} if mesh_plan is None else {"mesh": [mesh_plan.n_data, mesh_plan.n_feature]}
     with log.stage("engine_build", max_len=max_len):
         stacked = None
         indexes = [r.index for r in runners]
         configs = [r.config for r in runners]
         if (len(runners) > 1 and len({r.trim for r in runners}) == 1
+                and (mesh_plan is None or mesh_plan.n_feature == 1)
                 and os.environ.get("NIMBLE_TPU_STACK", "") == "1"
                 and StackedEngine.compatible(indexes, configs)):
             try:
                 stacked = StackedEngine(indexes, configs, device, strand_filter=strand_filter,
                                         chunk_size=chunk_size, max_len=max_len, paired=paired,
-                                        chunk_cap=chunk_cap)
+                                        chunk_cap=chunk_cap, mesh=mesh_plan)
             except NotStackable as e:
                 log.event("stacked_engine", n_libraries=len(runners), max_len=max_len, refused=str(e))
         if stacked is not None:
             for r in runners:
                 r.engine = None
+            if meshed:
+                meshed["shard_table_bytes"] = stacked.shard_table_bytes
             log.event("stacked_engine", n_libraries=len(runners), group_g=stacked.group_g, max_len=max_len)
             log.event("engine", path=stacked.path, chunk_size=stacked.chunk_size,
-                      table_bytes=stacked.table_bytes, wire=stacked.wire, n_libraries=len(runners))
+                      table_bytes=stacked.table_bytes, wire=stacked.wire, n_libraries=len(runners), **meshed)
             return stacked
         for r in runners:
             r.engine = AlignEngine(
@@ -624,9 +637,12 @@ def _build_engines(runners: List[LibraryRunner], device: torch.device,
                 max_len=max_len,
                 paired=paired,
                 chunk_cap=chunk_cap,
+                mesh=mesh_plan,
             )
+            if meshed:
+                meshed["shard_table_bytes"] = r.engine.shard_table_bytes
             log.event("engine", path=r.engine.path, chunk_size=r.engine.chunk_size,
-                      table_bytes=r.engine.table_bytes, wire=r.engine.wire)
+                      table_bytes=r.engine.table_bytes, wire=r.engine.wire, **meshed)
     return None
 
 
@@ -674,22 +690,20 @@ def warm_engine(index: KmerIndex, config: Config, device: torch.device, read_len
     return lines
 
 
-def refuse_unported(mesh: str = "") -> None:
-    """Raise NotImplementedError for `align` options the port has not taken
-    over from the reference, naming the ROADMAP item that will."""
-    if mesh:
-        raise NotImplementedError("--mesh: multi-GPU align is ROADMAP Queue 1 item 8")
-    if os.environ.get("JAX_COORDINATOR_ADDRESS"):
-        raise NotImplementedError(
-            "JAX_COORDINATOR_ADDRESS: coordinated multi-host align is ROADMAP "
-            "Queue 1 item 8 (a world of independent processes runs under "
-            "NIMBLE_TPU_NUM_PROCS / NIMBLE_TPU_PROC_ID)")
-
-
 def _align_world() -> Tuple[int, int]:
-    """(process_id, num_processes) of a multi-process `align`: the
-    NIMBLE_TPU_NUM_PROCS / NIMBLE_TPU_PROC_ID pair drives independent
-    processes over a shared filesystem. Default: one process."""
+    """(process_id, num_processes) of a multi-process `align`
+    (pipeline.py:_align_world). Under JAX_COORDINATOR_ADDRESS the process
+    joins the coordinated world first (parallel/dist.py:init_distributed),
+    whose group is then authoritative (align_files destroys it when it
+    ends). Without a coordinator, the NIMBLE_TPU_NUM_PROCS /
+    NIMBLE_TPU_PROC_ID pair drives independent processes over a shared
+    filesystem. Default: one process."""
+    from nimble_tpu_torch.parallel.dist import init_distributed
+
+    if init_distributed():
+        import torch.distributed as dist
+
+        return dist.get_rank(), dist.get_world_size()
     n = int(os.environ.get("NIMBLE_TPU_NUM_PROCS", "1") or 1)
     if n <= 1:
         return 0, 1
@@ -794,11 +808,17 @@ def align_files(
     trim: str = "",
     num_cores: int = 1,
     probe: str = "group",
+    mesh: str = "",
 ) -> int:
     """The `align` subcommand on `device`: 1-2 FASTQs or 1 BAM against a
     comma-separated library list, one output TSV per library. Returns a
     process exit code (nonzero on reader/engine failure, on a refused
-    resume and on a failed merge).
+    resume or mesh and on a failed merge).
+
+    mesh: an `--mesh` spec (parallel/mesh.py:align_mesh): every engine runs
+    on that grid of `device`'s devices, and the run log's `mesh` event gives
+    its axes. A grid larger than the visible cards exits 1, naming both
+    counts, before any file is written.
 
     probe "group" (the default) probes one (k+g-1)-mer per g read windows;
     "mono" probes every k-window, the reference-faithful per-k-mer
@@ -830,14 +850,42 @@ def align_files(
     each span's bytes, and writes its shard meta; process 0 merges the
     shards into reader order (_merge_shards), byte-identical to one
     process's run. With -c the threaded reader parses only the batches
-    whose spans this process owns (set_skip)."""
+    whose spans this process owns (set_skip). Under JAX_COORDINATOR_ADDRESS
+    the world's ranks come from the coordinator (_align_world), and the
+    process group is destroyed when the run ends, on error too."""
+    import torch.distributed as dist
+
+    from nimble_tpu_torch.observability import runlog
+    from nimble_tpu_torch.parallel.mesh import align_mesh
+
+    if probe not in ("group", "mono"):
+        raise ValueError(f"--probe must be 'group' or 'mono', got {probe!r}")
+    try:
+        mesh_plan = align_mesh(mesh, device)
+    except ValueError as e:
+        print(f"align --mesh {mesh}: {e}", file=sys.stderr)
+        return 1
+    if mesh_plan is not None:
+        runlog().event("mesh", n_data=mesh_plan.n_data, n_feature=mesh_plan.n_feature,
+                       devices=[str(d) for d in mesh_plan.devices])
+    try:
+        return _align_files(reference, output, inputs, device, strand_filter, chunk_size, max_len,
+                            batch_records, resume, trim, num_cores, probe, mesh_plan)
+    finally:
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _align_files(reference: str, output: str, inputs: Sequence[str], device: torch.device,
+                 strand_filter: str, chunk_size: Optional[int], max_len: int,
+                 batch_records: Optional[int], resume: bool, trim: str, num_cores: int, probe: str,
+                 mesh_plan) -> int:
+    """align_files' run, with the mesh parsed."""
     from nimble_tpu_torch.io.packing import pack_batch
     from nimble_tpu_torch.observability import Throughput, profile, runlog
 
     from nimble_tpu_torch.align.host_probe import HostMonoProber, patch_short_reads
 
-    if probe not in ("group", "mono"):
-        raise ValueError(f"--probe must be 'group' or 'mono', got {probe!r}")
     group_g = 0 if probe == "mono" else None
     log = runlog()
     world_pid, world_n = _align_world()
@@ -972,7 +1020,7 @@ def align_files(
             L = reader_len
 
         stacked = _build_engines(runners, device, strand_filter, chunk_size, L, paired,
-                                 batch_records, log)
+                                 batch_records, log, mesh_plan)
         # the span stays fixed for the whole run (a rebuild to a wider read
         # length keeps it), so span indices, ownership and resume cursors
         # are those of any run with the same span
@@ -1183,7 +1231,7 @@ def align_files(
                 for r in runners:
                     r.engine = None
                 stacked = _build_engines(runners, device, strand_filter, chunk_size,
-                                         payload, paired, batch_records, log)
+                                         payload, paired, batch_records, log, mesh_plan)
             else:
                 dispatch(payload)
         drain()

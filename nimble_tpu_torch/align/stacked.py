@@ -29,9 +29,15 @@ STACK_MAX_WORDS (`StackedEngine.compatible`); a stack whose tables cannot be
 placed raises NotStackable, and the pipeline then builds one engine per
 library, as the reference does on its ValueError.
 
+Under a mesh (stacked.py:513-533) the stack splits the data axis only: the
+chunk is rounded up to a multiple of n_data and each data row runs the
+stacked step on its lead device with its own copy of the tables
+(ChunkDispatch). The stacked rows inline every library's bitsets, so a
+feature split raises NotStackable and the pipeline builds one engine per
+library. The window kernel stays on under a mesh, as in AlignEngine.
+
 What the reference keeps for its TPU relay and this port leaves out: the
-scanned multi-chunk dispatch (`scan_chunks`), and the mesh branch (multi-GPU
-is ROADMAP Queue 1 item 8).
+scanned multi-chunk dispatch (`scan_chunks`).
 """
 from __future__ import annotations
 
@@ -386,9 +392,14 @@ class StackedEngine(ChunkDispatch):
         max_len: int = 256,
         paired: bool = False,
         chunk_cap: Optional[int] = None,
+        mesh=None,
     ):
+        if mesh is not None and mesh.n_feature != 1:
+            raise NotStackable("the stacked engine shards the data axis only")
         self.indexes = list(indexes)
-        self.device = torch.device(device)
+        self.mesh = mesh
+        # under a mesh the grid's devices replace `device`
+        self.device = torch.device(device) if mesh is None else mesh.lead(0)
         self.max_len = max(max_len, indexes[0].k)
         self.paired = paired
         self.params = [AlignParams.from_config(c, ix, strand_filter) for c, ix in zip(configs, indexes)]
@@ -415,11 +426,10 @@ class StackedEngine(ChunkDispatch):
             raise NotStackable("libraries not stackable (width/memory budget)")
         self.seg_words = np_tables.pop("seg_words")
         if self.group_g:
-            self.tables: Dict[str, torch.Tensor] = {k: _as_tensor(np_tables[k], self.device)
-                                                    for k in STACKED_GROUP_KEYS}
+            tables: Dict[str, torch.Tensor] = {k: _as_tensor(np_tables[k], self.device) for k in STACKED_GROUP_KEYS}
         else:
             # re-laid slot-major with its stash as one matrix, as mono_probe reads it
-            self.tables = tables_from_reference({k: np_tables[k] for k in MONO_KEYS}, self.device, owned=True)
+            tables = tables_from_reference({k: np_tables[k] for k in MONO_KEYS}, self.device, owned=True)
         self._lib_widths = [int(self.seg_words[i + 1] - self.seg_words[i]) for i in range(len(indexes))]
 
         if chunk_size is None:
@@ -427,7 +437,10 @@ class StackedEngine(ChunkDispatch):
             if chunk_cap is not None and chunk_cap < chunk_size:
                 # a chunk larger than the read batches would pad every batch
                 chunk_size = max(1 << int(np.log2(max(chunk_cap, 1))), 1)
+        if mesh is not None:
+            chunk_size = -(-chunk_size // mesh.n_data) * mesh.n_data  # the chunk tiles the data axis
         self.chunk_size = chunk_size
+        self._place(tables, mesh)
 
     def _per_read(self) -> int:
         """The stacked step's int32 words of transients per read
@@ -447,14 +460,16 @@ class StackedEngine(ChunkDispatch):
     def path(self) -> str:
         return "stacked-group" if self.group_g else "stacked-mono"
 
-    def step_outputs(self, *args) -> List[dict]:
-        """One chunk through the stacked step -> one output dict per library."""
+    def step_outputs(self, *args, tables=None) -> List[dict]:
+        """One chunk through the stacked step on `tables` (default: data row
+        0's) -> one output dict per library."""
+        tables = self.tables if tables is None else tables
         if self.group_g:
-            return stacked_align_step_group(self.tables, self.params, self.seg_words, self.group_g, *args)
-        return stacked_align_step(self.tables, self.params, self.seg_words, *args)
+            return stacked_align_step_group(tables, self.params, self.seg_words, self.group_g, *args)
+        return stacked_align_step(tables, self.params, self.seg_words, *args)
 
-    def _step(self, *args):
-        return pack_stacked(self.step_outputs(*args)), self.wire
+    def _step(self, tables, *args):
+        return pack_stacked(self.step_outputs(*args, tables=tables)), self.wire
 
     def collect_async(self, pending) -> Optional[List[Dict[str, np.ndarray]]]:
         """Copy dispatched outputs to host numpy and split them by library
@@ -462,7 +477,7 @@ class StackedEngine(ChunkDispatch):
         if not pending:
             return None
         row_w = sum(w + PACKED_EXTRA for w in self._lib_widths)
-        per_call = [flat.cpu().numpy().reshape(-1, row_w)[:valid] for flat, _wire, valid in pending]
+        per_call = [arr.reshape(-1, row_w)[:valid] for arr, _wire, valid, _rows in self._host_shards(pending)]
         result = []
         off = 0
         for w in self._lib_widths:

@@ -907,18 +907,20 @@ def tables_from_reference(np_tables, device, owned: bool = False) -> Dict[str, t
     raise ValueError(f"reference tables carry no group, mono or two-choice entries (keys {sorted(np_tables)})")
 
 
-def device_tables(index: KmerIndex, device, group_ok: bool = True) -> Dict[str, torch.Tensor]:
+def device_tables(index: KmerIndex, device, group_ok: bool = True, inline_ok: bool = True) -> Dict[str, torch.Tensor]:
     """The tables of one path on `device`, chosen as the reference's
-    `_device_tables(index, group_ok=group_ok)` chooses. W <= 16: the group
-    table when allowed, the index has group entries, W <= 8 and placement
-    fits; else the mono table when placement fits; else the two-choice
-    inline bucket. W > 16, when allowed and the index has group entries:
-    the gband tables when banding works and they place, else the groupcls
-    table when it places. Otherwise the monocls table when it places, else
-    the two-choice class-id bucket, each with the strict class bands where
-    every class fits one (`build_class_bands`), else with `class_bits`."""
+    `_device_tables(index, inline_ok=inline_ok, group_ok=group_ok)` chooses.
+    W <= 16 (and inline_ok): the group table when allowed, the index has
+    group entries, W <= 8 and placement fits; else the mono table when
+    placement fits; else the two-choice inline bucket. Otherwise (W > 16,
+    or any W without inline_ok, as a feature-split mesh asks), when allowed
+    and the index has group entries: the gband tables when banding works
+    and they place, else the groupcls table when it places. Otherwise the
+    monocls table when it places, else the two-choice class-id bucket, each
+    with the strict class bands where every class fits one
+    (`build_class_bands`, never at W <= 16), else with `class_bits`."""
     W = index.bitset_words
-    if W <= INLINE_BITS_MAX_WORDS:
+    if inline_ok and W <= INLINE_BITS_MAX_WORDS:
         tables = None
         if group_ok and W <= GROUP_MAX_WORDS:
             tables = build_group_tables(index)

@@ -1,3 +1,3 @@
-"""Multi-device work of the port: `report --distributed N` (dist.py). The
-reference's mesh (parallel/mesh.py) waits for `align --mesh` (ROADMAP Queue
-1 item 8c)."""
+"""Multi-device and multi-process work of the port: `report --distributed
+N` and the coordinated `align` world (dist.py), and `align --mesh`'s data x
+feature grid of devices (mesh.py)."""

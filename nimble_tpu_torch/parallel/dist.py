@@ -26,20 +26,56 @@ decides which shard owns which group, so it is the reference's, bit for
 bit.
 
 The shards are cuda:0 .. cuda:N-1, or N CPU shards (any N >= 1, as the
-reference's tests force 8 host devices). The reference's
-`init_distributed` (jax.distributed) belongs to `align --mesh` and the
-coordinator path (ROADMAP Queue 1 item 8c) and is not here.
+reference's tests force 8 host devices).
+
+`init_distributed()` joins the coordinated world of `align` (the
+reference's jax.distributed) over torch.distributed, from the reference's
+own variables, so that a launch script carries over.
 """
 from __future__ import annotations
 
 import hashlib
+import os
 import time
-from typing import Dict, List, Sequence, Tuple
+from datetime import timedelta
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from nimble_tpu_torch.device import resolve_device
+
+
+# jax.distributed.initialize's default initialization_timeout
+COORDINATOR_TIMEOUT_S = 300
+
+
+def init_distributed(coordinator_address: Optional[str] = None, num_processes: Optional[int] = None,
+                     process_id: Optional[int] = None) -> bool:
+    """Join a coordinated world from the arguments or the reference's
+    variables (JAX_COORDINATOR_ADDRESS host:port, JAX_NUM_PROCESSES,
+    JAX_PROCESS_ID): a torch.distributed process group with the gloo
+    backend, its rendezvous at tcp://<address>. Returns True when a group
+    was made, False without an address.
+
+    The backend is gloo on cpu and cuda alike. `align` exchanges no tensor
+    between processes: the coordinator gives each process its rank and the
+    world's size, and the shards meet through the filesystem merge (`.done`
+    sentinels, pipeline._merge_shards), as in the NIMBLE_TPU_NUM_PROCS
+    world. NCCL would also refuse two ranks on one GPU."""
+    import torch.distributed as dist
+
+    coordinator_address = coordinator_address or os.environ.get("JAX_COORDINATOR_ADDRESS")
+    if not coordinator_address:
+        return False
+    dist.init_process_group(
+        "gloo",
+        init_method=f"tcp://{coordinator_address}",
+        world_size=int(num_processes or os.environ.get("JAX_NUM_PROCESSES", 1)),
+        rank=int(process_id or os.environ.get("JAX_PROCESS_ID", 0)),
+        timeout=timedelta(seconds=COORDINATOR_TIMEOUT_S),
+    )
+    return True
 
 
 def shard_devices(n_shards: int, device="cuda") -> List[torch.device]:

@@ -8,7 +8,8 @@ Process 0 runs in this process and the others in processes of their own,
 all at once. Also: the decode-sharded world (-c 2) parses at most 0.7 of
 the reads in each process; a killed shard resumes; a three-process world
 on BAM pairs; processes that disagree on the span are refused instead of
-merged wrongly; JAX_COORDINATOR_ADDRESS and --mesh stay refused.
+merged wrongly. The coordinated world (JAX_COORDINATOR_ADDRESS) is
+tests/test_torch_coordinator.py's.
 """
 import os
 import re
@@ -144,15 +145,3 @@ def test_world_with_different_spans_is_refused(ws, tmp_path, capsys, monkeypatch
     assert rc0 == 1
     assert f"{{0: {SPAN}, 1: {SPAN // 2}}}" in err
     assert not (tmp_path / "merged.tsv").exists()
-
-
-@pytest.mark.parametrize("case", ["coordinator", "mesh"])
-def test_coordinator_and_mesh_still_refused(ws, case, tmp_path, capsys, monkeypatch):  # noqa: F811
-    args = _args(ws, "reads.fastq", tmp_path / "out.tsv")
-    if case == "mesh":
-        args += ["--mesh", "data=2"]
-    else:
-        monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:1234")
-    assert port_cli([*args, "--device", "cpu"]) == 2
-    assert "ROADMAP Queue 1 item 8" in capsys.readouterr().err
-    assert not (tmp_path / "out.tsv").exists()

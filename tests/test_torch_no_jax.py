@@ -173,6 +173,43 @@ def test_report_distributed_cpu_runs_without_jax(tmp_path):
     assert out.read_bytes() == host.read_bytes() and out.stat().st_size > 0
 
 
+def test_align_mesh_runs_without_jax(tmp_path):
+    """`align --probe mono --mesh data=2,feature=2` (parallel/mesh.py, the
+    meshed engine's shards and feature slices, monocls over split class
+    bits) imports no jax either, and writes the per-k-mer golden's bytes."""
+    _align_without_jax(tmp_path, ["--probe", "mono", "--mesh", "data=2,feature=2"], "golden_probe_mono.tsv")
+
+
+def test_coordinated_align_runs_without_jax(tmp_path):
+    """A coordinated world of two (JAX_COORDINATOR_ADDRESS over a gloo
+    group, parallel/dist.py:init_distributed) imports no jax either, and
+    its merged TSV is the golden bytes."""
+    from tests.test_torch_coordinator import LIMIT_S, free_port
+
+    shutil.copy(GOLD / "lib_base.json", tmp_path)
+    out = tmp_path / "out.tsv"
+    port = free_port()
+    args = ["align", "--reference", str(tmp_path / "lib_base.json"), "--output", str(out),
+            "--input", str(GOLD / "r1.fastq"), str(GOLD / "r2.fastq"), "--chunk-size", "16", "--device", "cpu"]
+    procs = [subprocess.Popen([sys.executable, "-c", SCRIPT, *args], cwd=REPO, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True,
+                              env={**os.environ, "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+                                   "JAX_NUM_PROCESSES": "2", "JAX_PROCESS_ID": str(pid)})
+             for pid in range(2)]
+    try:
+        for p in procs:
+            stdout, stderr = p.communicate(timeout=LIMIT_S)
+            assert p.returncode == 0, stderr[-3000:]
+            assert "LOADED []" in stdout
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    assert out.read_bytes() == (GOLD / "golden_base.tsv").read_bytes()
+    assert sorted(os.listdir(tmp_path)) == ["lib_base.json", "lib_base.json.idx.npz", "out.tsv"]
+
+
 def _imports(path: pathlib.Path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
