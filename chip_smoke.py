@@ -61,15 +61,24 @@ after building and checking their kernels:
  11. the gband path at real size: the single-end and paired runs;
  12. 16,384 of those reads through `align --device cuda` and `--device
      cpu` give byte-identical TSVs on the gband path;
- 13. (A) monocls at W = 625: the 20k library off the group probe
+ 13. first, the intersect_class_bits kernel == its plain version, exactly,
+     on synthetic arguments: B = 1,001 (not a multiple of the kernel's 8
+     warps a block), W in {1, 17, 32, 33, 157, 625} crossed with P in {1,
+     31, 33, 92, 120}, and (B, P, W) = (77, 1,600, 33) and (9, 16,383,
+     157), whose run lists need more than 48 KB of shared memory a block;
+     each with two all-miss reads, a read alternating two classes (every
+     position starts a run), a read matched everywhere with id -1 and 2%
+     of matched positions with id -1 (row 0 at W <= 32, all ones above);
+     then (A) monocls at W = 625: the 20k library off the group probe
      (NIMBLE_TPU_NO_GROUP_PROBE=1 on the index phase 9 built, which the
      reference also takes to monocls, rather than a second 20k index for
      `--probe mono`); its classes fit the strict class bands, so the step
      intersects them with band_tree_expand (checked against its plain
      version at Q1 = P, timed), and the same chunk's step is timed again
-     over class_bits (the class-bits intersection at W = 625, its output
-     equal to the banded step's); the first 131,072 of its reads and 32,768
-     of its pairs, and 16,384 reads cuda against cpu;
+     over class_bits (its output equal to the banded step's), with
+     intersect_class_bits checked and timed on the class ids that step
+     passes it at W = 625 (231,709 classes); the first 131,072 of its
+     reads and 32,768 of its pairs, and 16,384 reads cuda against cpu;
  14. (B) groupcls at W = 157: the first 5 families of the wide generator
      written allele-major (bench_data, `interleaved`: 5,000 alleles whose
      classes are not contiguous, so robust banding fails), default probe,
@@ -186,7 +195,12 @@ On 13-17 the engine `align` builds must take the named path (the run log's
 `engine` event), kmer_keys == its plain version at the arguments it passes
 for the first chunk of the reads, and that chunk's step is timed by stage
 (window, probe, intersection, combine + pack; kernel_bench.class_stages)
-with CUDA events. Depths cut to fit them: phases 5 and 7 from 2,097,152
+with CUDA events. On B, E and D (over class_bits) intersect_class_bits ==
+its plain version (torch.equal) at the arguments the engine passes it for
+that chunk, timed with its bytes, bound, share and the runs a read walks
+(mean and maximum), the step's stages timed again with the plain version
+in its place; their `align` runs must launch it, as phase 24's grids over
+the 20k library's class_bits must. Depths cut to fit them: phases 5 and 7 from 2,097,152
 reads to 1,048,576, phase 9 from 1,048,576 reads to 524,288.
 
 Each kernel is timed at its main-path arguments, captured from the
@@ -344,7 +358,8 @@ rc = main(sys.argv[1:])
 if torch.cuda.is_initialized():
     torch.cuda.synchronize()
 print("RESULT " + json.dumps({"wall_s": time.perf_counter() - t0, "launches": {
-    n: getattr(K, n).launches for n in ("kmer_keys", "mono_probe", "band_tree_expand")}}), flush=True)
+    n: getattr(K, n).launches for n in ("kmer_keys", "mono_probe", "band_tree_expand", "intersect_class_bits")}}),
+    flush=True)
 sys.exit(rc)
 """ % PROC_DEADLINE_S
 
@@ -574,7 +589,7 @@ def drive(label: str, args, n: int, kernels, lo: float = 0.3, path: str = ""):
     from nimble_tpu_torch.align import kernels as K
 
     wrappers = {"kmer_keys": K.kmer_keys, "mono_probe": K.mono_probe,
-                "band_tree_expand": K.band_tree_expand}
+                "band_tree_expand": K.band_tree_expand, "intersect_class_bits": K.intersect_class_bits}
     for w in wrappers.values():
         w.launches = 0
     out = args[args.index("--output") + 1]
@@ -1227,17 +1242,116 @@ def phase_cls_data(work: str, tag: str, families: int, interleaved: bool, n_pair
     return lib, fq, (r1, r2), cmp_fq
 
 
+def check_intersect(label: str, class_ids, matched, class_bits, quiet: bool = False) -> int:
+    """intersect_class_bits == intersect_class_bits_reference, exactly
+    (torch.equal), on these arguments on the card. Returns the max |diff|
+    (0)."""
+    from nimble_tpu_torch.align import kernels as K
+
+    got = K.intersect_class_bits(class_ids, matched, class_bits)
+    want = K.intersect_class_bits_reference(class_ids, matched, class_bits)
+    torch.cuda.synchronize()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"intersect_class_bits {got.dtype}{tuple(got.shape)} != plain "
+                             f"{want.dtype}{tuple(want.shape)} at {label}")
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    if err or not torch.equal(got, want):
+        raise AssertionError(f"intersect_class_bits != plain version at {label} (max |diff| {err})")
+    if not quiet:
+        (B, P), (C, W) = class_ids.shape, class_bits.shape
+        say("kernel", f"intersect_class_bits {label}: B={B} P={P} C={C} W={W}: equals the plain version "
+            f"(matched positions {float(matched.float().mean()):.3f}, reads with bits "
+            f"{float((got != 0).any(dim=1).float().mean()):.3f})")
+    return err
+
+
+def intersect_case(B: int, P: int, C: int, W: int, seed: int):
+    """Intersection arguments on the card (tests/test_torch_intersect.py's
+    cases): class ids in runs of about 3 positions, 10% of positions
+    unmatched (half of them with an id the mask must hide), 2% matched
+    with id -1; reads 0-1 all-miss, read 2 alternating two classes (every
+    position starts a run), read 3 matched everywhere with id -1; dense
+    bitsets (15/16 of the bits set), so that many-run ANDs keep bits."""
+    rng = np.random.default_rng(seed)
+    cb = np.bitwise_or.reduce(rng.integers(-(1 << 31), 1 << 31, size=(4, C, W), dtype=np.int64),
+                              axis=0).astype(np.int32)
+    new = rng.random((B, P)) < 0.3
+    new[:, 0] = True
+    ids = np.take_along_axis(rng.integers(0, C, size=(B, P)), np.cumsum(new, axis=1) - 1, axis=1).astype(np.int32)
+    matched = rng.random((B, P)) >= 0.1
+    ids[~matched & (rng.random((B, P)) < 0.5)] = -1
+    ids[matched & (rng.random((B, P)) < 0.02)] = -1
+    matched[:2] = False
+    ids[2] = np.where(np.arange(P) % 2 == 0, 3, 5)
+    matched[2] = True
+    ids[3], matched[3] = -1, True
+    dev = torch.device("cuda")
+    return tuple(torch.from_numpy(a).to(dev) for a in (ids, matched, cb))
+
+
+# intersect_class_bits on synthetic arguments: every W crossed with every P
+# at B = INTERSECT_B (not a multiple of the kernel's 8 warps a block), and
+# run lists too long for 8 warps' shared memory
+INTERSECT_W = (1, 17, 32, 33, 157, 625)
+INTERSECT_P = (1, 31, 33, 92, 120)
+INTERSECT_B = 1_001
+INTERSECT_LONG = ((77, 1_600, 33), (9, 16_383, 157))  # (B, P, W): 64 KB of lists, 3 warps a block
+
+
+def phase_intersect_kernel() -> int:
+    """intersect_class_bits == its plain version on the synthetic cases
+    (intersect_case): W in INTERSECT_W (W % 4 != 0 among them, both sides of
+    32) crossed with P in INTERSECT_P, and the long run lists. Returns the
+    max |diff|."""
+    t0 = time.perf_counter()
+    err = 0
+    cases = [(INTERSECT_B, P, W) for W in INTERSECT_W for P in INTERSECT_P] + list(INTERSECT_LONG)
+    for B, P, W in cases:
+        args = intersect_case(B, P, 3000, W, seed=B * P + W)
+        err = max(err, check_intersect(f"synthetic B={B} P={P} W={W}", *args, quiet=True))
+    say("kernel", f"intersect_class_bits == its plain version on {len(cases)} synthetic cases (B={INTERSECT_B}, W in "
+        f"{INTERSECT_W} x P in {INTERSECT_P}; (B, P, W) in {INTERSECT_LONG}; all-miss reads, a read whose every "
+        f"position starts a run, matched positions with id -1 on both sides of W = 32) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return err
+
+
+def time_intersect(tag: str, what: str, args):
+    """intersect_class_bits on the arguments of path `tag` (`what` they
+    are): == its plain version, the kernel's time (kernel_bench.device_ms),
+    the plain version's, the bytes, bound, share and the runs a read
+    walks. Returns (max |diff|, ms, plain ms, bound ms)."""
+    from nimble_tpu_torch import kernel_bench as KB
+    from nimble_tpu_torch.align import kernels as K
+
+    err = check_intersect(f"{tag} ({what})", *args)
+    ms = KB.device_ms(lambda: K.intersect_class_bits(*args))
+    plain = cuda_ms(lambda: K.intersect_class_bits_reference(*args))
+    n_bytes = KB.kernel_bytes("intersect_class_bits", args)
+    bound = KB.bound_ms(n_bytes)
+    runs = KB.run_stats(args[0], args[1], args[2].shape[1])
+    say(tag, f"intersect_class_bits B={args[0].shape[0]} P={args[0].shape[1]} "
+        f"C={args[2].shape[0]} W={args[2].shape[1]}: kernel {ms:.4f} ms on the card (CUDA graph, median of 25), "
+        f"{n_bytes / 1e6:.1f} MB, bound {bound:.4f} ms, share {bound / ms:.3f}; plain {plain:.4f} ms; runs a read: "
+        f"mean {runs['mean_runs']:.2f}, max {runs['max_runs']}")
+    return err, ms, plain, bound
+
+
 def phase_cls_engine(tag: str, lib: str, fq: str, path: str, group_g=None, bits_too: bool = False):
     """The engine that `align` builds for `lib` and 100 bp single-end reads,
-    which must take `path`: its tables; the kmer_keys kernel (and, on the
-    class bands, band_tree_expand at Q1 = P) against its plain version on
-    the arguments the engine passes it for the first chunk of fq's reads;
-    that chunk's step timed by stage (kernel_bench.class_stages), and with
-    `bits_too` on the class bands, timed again over class_bits instead
-    (its output must equal the banded step's). Returns
-    (kmer_keys max |diff|, band_tree_expand (max |diff|, ms, plain ms,
-    bound ms) or None)."""
+    which must take `path`: its tables; the kmer_keys kernel, and
+    band_tree_expand at Q1 = P on the class bands or intersect_class_bits
+    over class_bits, against its plain version on the arguments the engine
+    passes it for the first chunk of fq's reads (intersect_class_bits
+    timed with its bytes, bound and runs); that chunk's step timed by
+    stage (kernel_bench.class_stages), and with `bits_too` on the class
+    bands, timed again over class_bits instead (its output must equal the
+    banded step's; intersect_class_bits checked and timed on the class ids
+    that step passes it). Returns (kmer_keys max |diff|, band_tree_expand
+    (max |diff|, ms, plain ms, bound ms) or None, intersect_class_bits's
+    the same or None)."""
     from nimble_tpu_torch import kernel_bench as KB
+    from nimble_tpu_torch.align import engine as TE
     from nimble_tpu_torch.align import kernels as K
     from nimble_tpu_torch.align import tables as TT
 
@@ -1288,9 +1402,17 @@ def phase_cls_engine(tag: str, lib: str, fq: str, path: str, group_g=None, bits_
             f"reads: no row {sp['no_row']:.4f}, one page {sp['one_page']:.4f}, two adjacent pages "
             f"{sp['adjacent']:.4f}, a gap of 2 or more {sp['gap2']:.4f}; {sp['mean_rows']:.2f} positions a read")
         band = (b_err, ms, plain, bound)
+    inter = None
+    if not banded:
+        iargs = KB.captured(eng, codes, lens, "intersect_class_bits")
+        inter = time_intersect(tag, "the first chunk's class ids", iargs)
     dev = torch.device("cuda")
     c, ln = torch.from_numpy(codes).to(dev), torch.from_numpy(lens).to(dev)
     print_stages(tag, "one step by stage", KB.stage_ms(KB.class_stages(eng, c, ln)), c.shape)
+    if not banded:
+        with plain_intersection():
+            print_stages(tag, "the same step with the plain intersection (intersect_class_bits_reference)",
+                         KB.stage_ms(KB.class_stages(eng, c, ln)), c.shape)
     if banded and bits_too:
         # the same step over class_bits, as on a library without the bands:
         # the class-bits intersection at this W, on these reads' classes
@@ -1305,12 +1427,34 @@ def phase_cls_engine(tag: str, lib: str, fq: str, path: str, group_g=None, bits_
             outs.append(x)
         if not torch.equal(*outs):
             raise AssertionError(f"{tag}: the step over class_bits differs from the step over the class bands")
+        # what intersect_classes passes the kernel on this step
+        t, p = unbanded.tables, eng.params
+        cls_sel = TE.class_probe(TE.class_keys(c, ln, t, p), ln, c.shape[1], t, p)[0]
+        inter = time_intersect(tag, "the first chunk's class ids over class_bits",
+                               (cls_sel, cls_sel >= 0, t["class_bits"]))
         print_stages(tag, "the same step over class_bits (intersect_class_bits at this W; output equal to the "
                      "banded step's)", KB.stage_ms(KB.class_stages(unbanded, c, ln)), c.shape)
+        with plain_intersection():
+            print_stages(tag, "the step over class_bits with the plain intersection "
+                         "(intersect_class_bits_reference)", KB.stage_ms(KB.class_stages(unbanded, c, ln)), c.shape)
         del unbanded, outs
     del eng, r
     torch.cuda.empty_cache()
-    return err, band
+    return err, band, inter
+
+
+@contextlib.contextmanager
+def plain_intersection():
+    """The engine's intersect_class_bits swapped for its plain version, for
+    a stage split beside the kernel's."""
+    from nimble_tpu_torch.align import engine as TE
+    from nimble_tpu_torch.align import kernels as K
+
+    TE.intersect_class_bits = K.intersect_class_bits_reference
+    try:
+        yield
+    finally:
+        TE.intersect_class_bits = K.intersect_class_bits
 
 
 def print_stages(tag: str, what: str, st: dict, shape) -> None:
@@ -1325,10 +1469,12 @@ def phase_cls(work: str, tag: str, lib: str, fq: str, cmp_fq: str, path: str, fl
     """A class-id wide path: phase_cls_engine, then N_CLS_READS single-end
     reads (and N_CLS_PAIRS pairs) through `align` on cuda, then N_CLS_CMP
     reads on cuda and cpu. Returns (kmer_keys max |diff|, band_tree_expand
-    result or None, summed launch counts)."""
+    result or None, intersect_class_bits result or None, summed launch
+    counts)."""
     cores = str(os.cpu_count() or 1)
-    kernels = ["kmer_keys", "band_tree_expand"] if path.endswith("(class bands)") else ["kmer_keys"]
-    err, band = phase_cls_engine(tag, lib, fq, path, group_g, bits_too)
+    banded = path.endswith("(class bands)")
+    kernels = ["kmer_keys", "band_tree_expand" if banded else "intersect_class_bits"]
+    err, band, inter = phase_cls_engine(tag, lib, fq, path, group_g, bits_too)
     base = os.path.splitext(lib)[0]
     runs = [drive(f"{tag} single-end reads", ["--reference", lib, "--output", f"{base}.se.tsv", "--input", fq,
                                               "-c", cores, *flags], N_CLS_READS, kernels, lo=0.05, path=path)]
@@ -1337,7 +1483,7 @@ def phase_cls(work: str, tag: str, lib: str, fq: str, cmp_fq: str, path: str, fl
                                                          "--input", *pairs, "-c", cores, *flags],
                           N_CLS_PAIRS, kernels, lo=0.05, path=path))
     compare_devices(tag, lib, cmp_fq, flags, N_CLS_CMP)
-    return err, band, {k: sum(r[2][k] for r in runs) for k in runs[0][2]}
+    return err, band, inter, {k: sum(r[2][k] for r in runs) for k in runs[0][2]}
 
 
 def phase_cls_paths(work: str, wlib: str, wfq: str, wr1: str, wr2: str, wcmp: str):
@@ -1346,12 +1492,15 @@ def phase_cls_paths(work: str, wlib: str, wfq: str, wr1: str, wr2: str, wcmp: st
     library (groupcls), a family-order library under --probe mono (monocls,
     class bands), the allele-major one under --probe mono (monocls, class
     bits), then with the placement cap below its monocls table (the wide
-    two-choice probe). Returns (kmer_keys max |diff|, band_tree_expand
-    (max |diff|, ms, plain ms, bound ms) on each class-band path, summed
-    launch counts)."""
+    two-choice probe); first intersect_class_bits on its synthetic cases.
+    Returns (kmer_keys max |diff|, band_tree_expand (max |diff|, ms, plain
+    ms, bound ms) on each class-band path, intersect_class_bits's by tag
+    ("A" over class_bits, "B", "E", "D") and its synthetic max |diff|,
+    summed launch counts)."""
     from nimble_tpu_torch.align import tables as TT
     from nimble_tpu_torch.align.pipeline import make_runner
 
+    synth_err = phase_intersect_kernel()
     d = os.path.join(work, "wide")
     fq = gz_head(wfq, os.path.join(d, f"reads20k_{N_CLS_READS}.fastq.gz"), N_CLS_READS)
     pairs = [gz_head(src, os.path.join(d, f"pairs20k_r{i}_{N_CLS_PAIRS}.fastq.gz"), N_CLS_PAIRS)
@@ -1380,8 +1529,9 @@ def phase_cls_paths(work: str, wlib: str, wfq: str, wr1: str, wr2: str, wcmp: st
         results.append(phase_cls(work, "D", blib, bfq, bcmp, "two-choice", MONO, group_g=0))
     finally:
         TT.MONO_MAX_BYTES = default_cap
-    counts = {k: sum(r[2][k] for r in results) for k in results[0][2]}
-    return max(r[0] for r in results), [r[1] for r in results if r[1] is not None], counts
+    counts = {k: sum(r[3][k] for r in results) for k in results[0][3]}
+    inters = {tag: r[2] for tag, r in zip("ABCED", results) if r[2] is not None}
+    return max(r[0] for r in results), [r[1] for r in results if r[1] is not None], (inters, synth_err), counts
 
 
 def phase_report(work: str, pout: str):
@@ -2060,7 +2210,8 @@ def mesh_grids(tag: str, index, config, codes, lens, grids, kernels, group_probe
     from nimble_tpu_torch.align.pipeline import _round_len
     from nimble_tpu_torch.parallel.mesh import make_mesh
 
-    wrappers = {"kmer_keys": K.kmer_keys, "mono_probe": K.mono_probe, "band_tree_expand": K.band_tree_expand}
+    wrappers = {"kmer_keys": K.kmer_keys, "mono_probe": K.mono_probe, "band_tree_expand": K.band_tree_expand,
+                "intersect_class_bits": K.intersect_class_bits}
     counts = {k: 0 for k in wrappers}
     W = index.bitset_words
     L = _round_len(READ_LEN)
@@ -2220,7 +2371,7 @@ def phase_mesh(work: str, lib: str, fq: str, bam: str, pout: str, se_wall: float
         return memo[id(ix.table_hi)]
 
     TT.build_monocls_tables = monocls_once
-    errs = {"kmer_keys": 0, "mono_probe": 0, "band_tree_expand": 0}
+    errs = {"kmer_keys": 0, "mono_probe": 0, "band_tree_expand": 0, "intersect_class_bits": 0}
     try:
         r = make_runner(lib, os.devnull)
         c, e = mesh_grids("HLA-100", r.index, r.config, codes, lens, MESH_GRIDS, ["kmer_keys"])
@@ -2237,10 +2388,11 @@ def phase_mesh(work: str, lib: str, fq: str, bam: str, pout: str, se_wall: float
             f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f} GiB: {json.dumps(plan)}")
         bits_ix = copy.copy(w.index)
         bits_ix._torch_class_bands = None  # the class table as class_bits, split on the feature axis
-        c, e = mesh_grids("20k library, class_bits", bits_ix, w.config, wcodes, wlens, MESH_GRIDS, ["kmer_keys"],
-                          group_probe=False)
+        c, e = mesh_grids("20k library, class_bits", bits_ix, w.config, wcodes, wlens, MESH_GRIDS,
+                          ["kmer_keys", "intersect_class_bits"], group_probe=False)
         counts.append(c)
         errs["kmer_keys"] = max(errs["kmer_keys"], e)
+        errs["intersect_class_bits"] = max(errs["intersect_class_bits"], e)
         c, e = mesh_grids("20k library, class bands", w.index, w.config, wcodes, wlens, [(2, 1)],
                           ["kmer_keys", "band_tree_expand"], group_probe=False)
         counts.append(c)
@@ -2292,7 +2444,8 @@ def main(argv=None) -> int:
         bt_err, bt_ms, bt_plain, bt_bound = phase_wide_kernel(wlib, wfq)
         wide_counts = phase_wide_main(work, wlib, wfq, wr1, wr2)
         compare_devices("20k library, gband", wlib, wcmp)
-        cls_err, cls_bands, cls_counts = phase_cls_paths(work, wlib, wfq, wr1, wr2, wcmp)
+        cls_err, cls_bands, (cls_inters, ic_synth_err), cls_counts = phase_cls_paths(work, wlib, wfq, wr1, wr2,
+                                                                                     wcmp)
         reports = phase_report(work, pout)
         sref, sfq, scmp, sbam = phase_stacked_data(work)
         st_err = phase_stacked_kernels(sref, sfq)
@@ -2304,8 +2457,9 @@ def main(argv=None) -> int:
         mesh_counts, mesh_errs = phase_mesh(work, lib, fq, bam, pout, se_wall, wlib, wfq)
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     # no single PyTorch call computes any of these functions: library_ms null
-    # times and bounds at each kernel's main path; launches summed over
-    # every path's runs, errors over every check
+    # times and bounds at each kernel's main path (intersect_class_bits's at
+    # groupcls B's first chunk); launches summed over every path's runs,
+    # errors over every check
     runs = (group_counts, mono_counts, wide_counts, cls_counts, stacked_counts, resume_counts, pipeline_counts,
             profile_counts, mesh_counts)
     kernels = [
@@ -2318,6 +2472,10 @@ def main(argv=None) -> int:
          wide_counts["band_tree_expand"] + cls_counts["band_tree_expand"] + resume_counts["band_tree_expand"]
          + mesh_counts["band_tree_expand"], max(bt_err, mesh_errs["band_tree_expand"], *(b[0] for b in cls_bands)),
          bt_ms, bt_plain, bt_bound),
+        ("intersect_class_bits", "nimble_tpu/align/engine.py:2392 (XLA while_loop, no pallas_call)",
+         sum(c.get("intersect_class_bits", 0) for c in runs),
+         max(ic_synth_err, mesh_errs["intersect_class_bits"], *(r[0] for r in cls_inters.values())),
+         *cls_inters["B"][1:]),
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"nimble_tpu_torch/csrc/{name}.cu", "replaces": replaces,

@@ -22,10 +22,12 @@ on wide libraries (W > 16) that can be banded, on the banded group path
 (gband), and the other wide paths (groupcls, monocls, the wide two-choice
 probe); several libraries at once through the stacked engine (one merged
 probe answers every library); on a data x feature mesh of devices
-(`--mesh`) and in worlds of processes, coordinated or not. Three hand-written CUDA kernels run on the card — the window stage
-(csrc/kmer_keys.cu), the fused mono probe (csrc/mono_probe.cu) and the
-gband band-row intersection (csrc/band_tree_expand.cu) — and their plain
-torch versions on the CPU.
+(`--mesh`) and in worlds of processes, coordinated or not. Four
+hand-written CUDA kernels run on the card — the window stage
+(csrc/kmer_keys.cu), the fused mono probe (csrc/mono_probe.cu), the gband
+band-row intersection (csrc/band_tree_expand.cu) and the class-bits
+intersection of the class-id paths (csrc/intersect_class_bits.cu) — and
+their plain torch versions on the CPU.
 
 Modules (named after their reference counterparts):
   nimble_tpu_torch.device          — explicit device resolution
@@ -39,8 +41,9 @@ Modules (named after their reference counterparts):
   nimble_tpu_torch.align.tables    — group, gband, mono and two-choice
                                      device tables
   nimble_tpu_torch.align.kernels   — kmer_keys, mono_probe,
-                                     band_tree_expand: CUDA kernels + plain
-                                     torch versions
+                                     band_tree_expand,
+                                     intersect_class_bits: CUDA kernels +
+                                     plain torch versions
   nimble_tpu_torch.align.engine    — the align steps, output wires, engine
   nimble_tpu_torch.align.stacked   — the stacked multi-library engine
   nimble_tpu_torch.align.host_probe— host mono repair for short reads

@@ -13,8 +13,8 @@ Ports every path of nimble_tpu/align/engine.py:_score_mate:
   * groupcls (`_score_mate_classes`, W > 16 when gband cannot be built):
     the same window stage and probe grid, the probe rows carrying the g
     windows' class ids (`groupcls_probe`), masks and scores, the orientation
-    chosen from the scores, then the runs-compacted class-bits intersection
-    of the selected orientation's classes (`intersect_class_bits`);
+    chosen from the scores, then the class-bits intersection of the
+    selected orientation's classes (`kernels.intersect_class_bits`);
   * mono (`_score_mate_mono`): the window stage at k, the stride slice, the
     fused mono-table probe (`kernels.mono_probe`), coverage and the same
     orientation select and AND;
@@ -25,9 +25,10 @@ Ports every path of nimble_tpu/align/engine.py:_score_mate:
     without the group probe): the window stage at k, the stride slice, one
     class-id probe per window (`lookup_monocls`, or `lookup_classes` when
     monocls placement is infeasible), coverage, the orientation, then the
-    selected classes intersected over `class_bits` (`intersect_class_bits`)
-    or, where every class fits a 2-page band, over their band rows
-    (`intersect_class_bands`: `kernels.band_tree_expand`);
+    selected classes intersected over `class_bits`
+    (`kernels.intersect_class_bits`) or, where every class fits a 2-page
+    band, over their band rows (`intersect_class_bands`:
+    `kernels.band_tree_expand`);
 then mate combination, score filters and the output wire: the full
 `pack_outputs` format, or on the gband path the reference's device emit cap
 with its idlist wire (`pack_outputs_idlist`) or band rows. Every function is
@@ -64,8 +65,11 @@ from nimble_tpu_torch.config import Config
 from nimble_tpu_torch.index.builder import BUCKET_SLOTS, STASH_SIZE, KmerIndex
 from nimble_tpu_torch.align.kernels import (
     N_CODE,
+    RUN_BLOCK,
     _to_i32,
+    and_reduce_bits,
     band_tree_expand,
+    intersect_class_bits,
     kmer_keys,
     mono_probe,
 )
@@ -116,10 +120,6 @@ AUTO_CHUNK_BUDGET = 1 << 30
 AUTO_CHUNK_MIN = 1 << 10
 AUTO_CHUNK_MAX = 1 << 17
 CPU_CHUNK_MAX = 1 << 13  # keeps host RAM sane when the device is the CPU
-
-# run-start classes gathered at a time by the wide class-bits intersection
-# (engine.py:127)
-RUN_BLOCK = 8
 
 # packed-output columns after the W bits words (engine.py:1146)
 PACKED_EXTRA = 3
@@ -447,27 +447,6 @@ def coverage_score2(matched_f, matched_r, lens, k: int, L: int, stride: int = 1)
     return cov_f.sum(dim=1).to(torch.int32), cov_r.sum(dim=1).to(torch.int32)
 
 
-def _and_tree(rows: torch.Tensor) -> torch.Tensor:
-    """AND of (B, n, W) rows over axis 1 by a halving tree -> (B, W)."""
-    n = rows.shape[1]
-    while n > 1:
-        half = n // 2
-        lower = rows[:, :half] & rows[:, half : 2 * half]
-        if n % 2:
-            lower[:, 0] &= rows[:, -1]
-        rows = lower
-        n = half
-    return rows[:, 0]
-
-
-def and_reduce_bits(rows: torch.Tensor, matched: torch.Tensor) -> torch.Tensor:
-    """engine.py:and_reduce_bits — AND (B, P, W) bitset rows over matched
-    positions -> (B, W). Misses contribute all ones; reads with no matched
-    position end all-zero."""
-    acc = _and_tree(torch.where(matched[..., None], rows, torch.full((), -1, dtype=rows.dtype, device=rows.device)))
-    return torch.where(matched.any(dim=1)[:, None], acc, torch.zeros_like(acc))
-
-
 def _use_fwd(score_f, score_r, p):
     """The orientation a read is scored in, under the strand filter."""
     if p.strand_filter == "fiveprime":
@@ -770,43 +749,6 @@ def lookup_monocls(hi_i, lo_i, h1, fwd_c, palin, valid, tables):
     return _orient_classes(vs, vd, fwd_c, palin, valid)
 
 
-def intersect_class_bits(class_ids: torch.Tensor, matched: torch.Tensor,
-                         class_bits: torch.Tensor) -> torch.Tensor:
-    """engine.py:intersect_class_bits — the AND of the class bitsets of the
-    matched positions' classes -> (B, W) int32; misses contribute all ones,
-    reads with no matched position end all-zero.
-
-    W <= 32: one (B, P, W) gather and and_reduce_bits. W > 32: runs
-    compacted, as the reference: one row per run of equal consecutive class
-    ids (AND is idempotent), the runs' first classes gathered RUN_BLOCK at a
-    time. The reference's while_loop stops after ceil(max_runs / RUN_BLOCK)
-    blocks, a count read off the data; every block past it selects no class
-    and ANDs all-ones. So this loop runs the static ceil(P / RUN_BLOCK)
-    blocks and gives the same bits without reading max_runs back to the
-    host: the step never waits on the card. A run's class lands in slot
-    `rank` of a (B, P) table by one scatter (the reference's one-hot rank
-    compare, which selects the same class per slot)."""
-    B, P = class_ids.shape
-    dev = class_ids.device
-    if class_bits.shape[1] <= 32:
-        return and_reduce_bits(class_bits[class_ids.clamp(min=0).long()], matched)
-    neg = torch.full((), -1, dtype=torch.int32, device=dev)
-    cls = torch.where(matched, class_ids, neg)
-    prev = torch.cat([torch.full((B, 1), -2, dtype=torch.int32, device=dev), cls[:, :-1]], dim=1)
-    newrun = matched & (cls != prev)  # run starts (over-marking is harmless)
-    rank = torch.cumsum(newrun.to(torch.int32), dim=1, dtype=torch.int32) - 1
-    n_slots = -(-P // RUN_BLOCK) * RUN_BLOCK
-    # slot n_slots takes every position that starts no run; it is dropped
-    slots = torch.full((B, n_slots + 1), -1, dtype=torch.int32, device=dev)
-    slots.scatter_(1, torch.where(newrun, rank, n_slots).long(), cls)
-    acc = torch.full((B, class_bits.shape[1]), -1, dtype=torch.int32, device=dev)
-    for base in range(0, n_slots, RUN_BLOCK):
-        ids = slots[:, base : base + RUN_BLOCK]
-        rows = torch.where(ids[..., None] >= 0, class_bits[ids.clamp(min=0).long()], neg)
-        acc &= _and_tree(rows)
-    return torch.where(matched.any(dim=1)[:, None], acc, torch.zeros_like(acc))
-
-
 def intersect_class_bands(class_ids: torch.Tensor, matched: torch.Tensor, class_page: torch.Tensor,
                           class_band: torch.Tensor, W: int) -> torch.Tensor:
     """engine.py:intersect_class_bands — the AND of the matched positions'
@@ -862,8 +804,9 @@ def intersect_class_slices(cls_sel: torch.Tensor, slices) -> torch.Tensor:
     slice of the padded class bitsets, each on its slice's device over a
     copy of the selected class ids, the (B, W_pad / M) results concatenated
     along the words on the ids' device. Exact, because the AND is
-    elementwise over words; a slice of at most 32 words takes the gather
-    branch even where W is wide, which gives the same bits."""
+    elementwise over words; a slice of at most 32 words takes the plain
+    version's gather branch even where W is wide (and the kernel its rule
+    for W <= 32), which gives the same bits."""
     lead = cls_sel.device
     parts = []
     for cb in slices:

@@ -21,14 +21,23 @@ The kernel computes the fold in closed form from the highest and lowest
 contributing page (one page pass and one band pass per read); the plain
 version keeps the reference's halving tree.
 
+`intersect_class_bits(class_ids, matched, class_bits)` returns the (B, W)
+bits of the class-id paths (groupcls, monocls, the wide two-choice probe):
+the AND of the class_bits rows at each read's matched positions, which the
+reference leaves to XLA (nimble_tpu/align/engine.py:intersect_class_bits, a
+row gather for W <= 32, a while_loop over run-start blocks above). The
+kernel walks each read's own runs; the plain version keeps the reference's
+two branches, its block loop run to the static bound ceil(P / RUN_BLOCK).
+
 On CUDA tensors each wrapper launches its hand-written sm_90a kernel
-(csrc/kmer_keys.cu, csrc/mono_probe.cu, csrc/band_tree_expand.cu), built
-with nvcc at first use into _build/ and bound with ctypes (a plain C
-interface, so the build takes seconds, not the minutes a build against
-PyTorch's headers takes). On CPU tensors it runs the plain torch version
-(`kmer_keys_reference`, `mono_probe_reference`,
-`band_tree_expand_reference`). Nothing falls back from one to the other: a
-CUDA launch either succeeds or raises. Each wrapper counts its kernel
+(csrc/kmer_keys.cu, csrc/mono_probe.cu, csrc/band_tree_expand.cu,
+csrc/intersect_class_bits.cu), built with nvcc at first use into _build/
+and bound with ctypes (a plain C interface, so the build takes seconds,
+not the minutes a build against PyTorch's headers takes). On CPU tensors
+it runs the plain torch version (`kmer_keys_reference`,
+`mono_probe_reference`, `band_tree_expand_reference`,
+`intersect_class_bits_reference`). Nothing falls back from one to the
+other: a CUDA launch either succeeds or raises. Each wrapper counts its kernel
 launches in `<wrapper>.launches`.
 """
 from __future__ import annotations
@@ -226,6 +235,15 @@ def _load():
                 ctypes.c_int64,  # windows
                 ctypes.c_void_p, ctypes.c_int,  # stash, n_stash
                 ctypes.c_void_p, ctypes.c_void_p,  # bits_f, bits_r
+                ctypes.c_void_p,  # stream
+            ]
+            lib.nt_intersect_class_bits.restype = ctypes.c_int
+            lib.nt_intersect_class_bits.argtypes = [
+                ctypes.c_int,  # device
+                ctypes.c_void_p, ctypes.c_void_p,  # class_ids, matched
+                ctypes.c_int64, ctypes.c_int,  # B, P
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,  # class_bits, C, W
+                ctypes.c_void_p,  # out
                 ctypes.c_void_p,  # stream
             ]
             lib.nt_band_tree_expand.restype = ctypes.c_int
@@ -493,3 +511,111 @@ def band_tree_expand(gband_page: torch.Tensor, gband_band: torch.Tensor, idx_sel
 
 
 band_tree_expand.launches = 0
+
+
+# run-start classes gathered at a time by the plain version's wide branch
+# (nimble_tpu/align/engine.py:127)
+RUN_BLOCK = 8
+
+
+def _and_tree(rows: torch.Tensor) -> torch.Tensor:
+    """AND of (B, n, W) rows over axis 1 by a halving tree -> (B, W)."""
+    n = rows.shape[1]
+    while n > 1:
+        half = n // 2
+        lower = rows[:, :half] & rows[:, half : 2 * half]
+        if n % 2:
+            lower[:, 0] &= rows[:, -1]
+        rows = lower
+        n = half
+    return rows[:, 0]
+
+
+def and_reduce_bits(rows: torch.Tensor, matched: torch.Tensor) -> torch.Tensor:
+    """engine.py:and_reduce_bits — AND (B, P, W) bitset rows over matched
+    positions -> (B, W). Misses contribute all ones; reads with no matched
+    position end all-zero."""
+    acc = _and_tree(torch.where(matched[..., None], rows, torch.full((), -1, dtype=rows.dtype, device=rows.device)))
+    return torch.where(matched.any(dim=1)[:, None], acc, torch.zeros_like(acc))
+
+
+def intersect_class_bits_reference(class_ids: torch.Tensor, matched: torch.Tensor,
+                                   class_bits: torch.Tensor) -> torch.Tensor:
+    """The plain torch version of the kernel: engine.py:intersect_class_bits
+    — the AND of the class bitsets of the matched positions' classes ->
+    (B, W) int32; misses contribute all ones, reads with no matched
+    position end all-zero.
+
+    W <= 32: one (B, P, W) gather and and_reduce_bits. W > 32: runs
+    compacted, as the reference: one row per run of equal consecutive class
+    ids (AND is idempotent), the runs' first classes gathered RUN_BLOCK at a
+    time. The reference's while_loop stops after ceil(max_runs / RUN_BLOCK)
+    blocks, a count read off the data; every block past it selects no class
+    and ANDs all-ones. So this loop runs the static ceil(P / RUN_BLOCK)
+    blocks and gives the same bits without reading max_runs back to the
+    host: the step never waits on the card. A run's class lands in slot
+    `rank` of a (B, P) table by one scatter (the reference's one-hot rank
+    compare, which selects the same class per slot)."""
+    B, P = class_ids.shape
+    dev = class_ids.device
+    if class_bits.shape[1] <= 32:
+        return and_reduce_bits(class_bits[class_ids.clamp(min=0).long()], matched)
+    neg = torch.full((), -1, dtype=torch.int32, device=dev)
+    cls = torch.where(matched, class_ids, neg)
+    prev = torch.cat([torch.full((B, 1), -2, dtype=torch.int32, device=dev), cls[:, :-1]], dim=1)
+    newrun = matched & (cls != prev)  # run starts (over-marking is harmless)
+    rank = torch.cumsum(newrun.to(torch.int32), dim=1, dtype=torch.int32) - 1
+    n_slots = -(-P // RUN_BLOCK) * RUN_BLOCK
+    # slot n_slots takes every position that starts no run; it is dropped
+    slots = torch.full((B, n_slots + 1), -1, dtype=torch.int32, device=dev)
+    slots.scatter_(1, torch.where(newrun, rank, n_slots).long(), cls)
+    acc = torch.full((B, class_bits.shape[1]), -1, dtype=torch.int32, device=dev)
+    for base in range(0, n_slots, RUN_BLOCK):
+        ids = slots[:, base : base + RUN_BLOCK]
+        rows = torch.where(ids[..., None] >= 0, class_bits[ids.clamp(min=0).long()], neg)
+        acc &= _and_tree(rows)
+    return torch.where(matched.any(dim=1)[:, None], acc, torch.zeros_like(acc))
+
+
+def intersect_class_bits(class_ids: torch.Tensor, matched: torch.Tensor,
+                         class_bits: torch.Tensor) -> torch.Tensor:
+    """The class-bits intersection of the class-id paths: class_ids (B, P)
+    int32 (-1 a miss), matched (B, P) bool, class_bits (C, W) int32 ->
+    bits (B, W) int32, the AND of the class rows at each read's matched
+    positions (unmatched positions contribute all ones, a read with no
+    matched position ends all-zero). Every tensor must be contiguous and on
+    one device."""
+    if class_ids.dim() != 2 or class_ids.dtype != torch.int32 or class_ids.shape[1] < 1:
+        raise ValueError(f"class_ids must be (B, P >= 1) int32, got {tuple(class_ids.shape)} {class_ids.dtype}")
+    if matched.dtype != torch.bool or matched.shape != class_ids.shape:
+        raise ValueError(f"matched must be {tuple(class_ids.shape)} bool, got {tuple(matched.shape)} {matched.dtype}")
+    if class_bits.dim() != 2 or class_bits.dtype != torch.int32 or min(class_bits.shape) < 1:
+        raise ValueError(f"class_bits must be (C >= 1, W >= 1) int32, got "
+                         f"{tuple(class_bits.shape)} {class_bits.dtype}")
+    tensors = (class_ids, matched, class_bits)
+    dev = class_bits.device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"intersect_class_bits needs every tensor on one device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("intersect_class_bits needs contiguous tensors")
+    if dev.type == "cpu":
+        return intersect_class_bits_reference(class_ids, matched, class_bits)
+    if dev.type != "cuda":
+        raise ValueError(f"intersect_class_bits runs on cuda or cpu tensors, got {dev}")
+    lib = _load()
+    B, P = class_ids.shape
+    C, W = class_bits.shape
+    out = torch.empty((B, W), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.nt_intersect_class_bits(
+        _device_index(dev), class_ids.data_ptr(), matched.data_ptr(), B, P, class_bits.data_ptr(), C, W,
+        out.data_ptr(), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"intersect_class_bits kernel launch failed: cudaError {err}")
+    intersect_class_bits.launches += 1
+    return out
+
+
+intersect_class_bits.launches = 0

@@ -35,9 +35,9 @@ with a patch (`band_variants`).
 
 `class_stages` and `stage_ms` cut one step of a class-id wide path
 (groupcls, monocls, the wide two-choice probe) into its stages and time
-each on the card, and `stacked_stages` one step of the stacked engine
-(window, merged probe, the libraries' tails, pack); chip_smoke.py prints
-them.
+each on the card (`run_stats`: the runs a read's intersection walks), and
+`stacked_stages` one step of the stacked engine (window, merged probe,
+the libraries' tails, pack); chip_smoke.py prints them.
 
 `run` calls only what the port has had since its gband slice and takes
 each table in the layout that checkout's engine ships, so this file, copied
@@ -139,6 +139,12 @@ def band_tree_expand_bytes(B: int, Q1: int, W: int, row_bytes: int) -> int:
     return B * Q1 * 5 + 4 * B * W + row_bytes
 
 
+def intersect_class_bits_bytes(B: int, P: int, W: int, n_rows: int) -> int:
+    """class_ids and matched read, (B, W) written; plus the n_rows distinct
+    class rows this input needs (the classes at matched positions), once."""
+    return 5 * B * P + 4 * B * W + 4 * W * n_rows
+
+
 def kernel_bytes(name: str, args) -> int:
     """The bytes the wrapper `name` must move for these arguments."""
     import torch
@@ -149,9 +155,27 @@ def kernel_bytes(name: str, args) -> int:
     if name == "mono_probe":
         bucket, h1, hi, lo, _fc, _pal, valid, stash, W = args
         return mono_probe_bytes(hi.numel(), W, mono_table_bytes(bucket, h1, hi, lo, valid, W) + stash.numel() * 4)
+    if name == "intersect_class_bits":
+        class_ids, matched, class_bits = args
+        rows = int(torch.unique(class_ids[matched]).numel())
+        return intersect_class_bits_bytes(*class_ids.shape, class_bits.shape[1], rows)
     pages, idx_sel, has_sel, W, Pw = band_args(args)
     rows = int(torch.unique(idx_sel[has_sel]).numel())
     return band_tree_expand_bytes(idx_sel.shape[0], idx_sel.shape[1], W, rows * (1 + 2 * Pw) * 4)
+
+
+def run_stats(class_ids, matched, W: int) -> dict:
+    """The runs the intersection kernel walks for each read (run starts by
+    csrc/intersect_class_bits.cu's rule: a matched position whose class is
+    a row and differs from the position before): their mean and maximum
+    over reads."""
+    import torch
+
+    neg = -1 if W > 32 else 0  # the row a matched negative id names, if any
+    cls = torch.where(matched, torch.where(class_ids < 0, neg, class_ids), -1)
+    prev = torch.cat([torch.full_like(cls[:, :1], -2), cls[:, :-1]], dim=1)
+    n = ((cls >= 0) & (cls != prev)).sum(dim=1)
+    return {"mean_runs": float(n.double().mean()), "max_runs": int(n.max())}
 
 
 def band_args(args):
