@@ -65,10 +65,17 @@ after building and checking their kernels:
      on synthetic arguments: B = 1,001 (not a multiple of the kernel's 8
      warps a block), W in {1, 17, 32, 33, 157, 625} crossed with P in {1,
      31, 33, 92, 120}, and (B, P, W) = (77, 1,600, 33) and (9, 16,383,
-     157), whose run lists need more than 48 KB of shared memory a block;
-     each with two all-miss reads, a read alternating two classes (every
-     position starts a run), a read matched everywhere with id -1 and 2%
-     of matched positions with id -1 (row 0 at W <= 32, all ones above);
+     157), whose run lists need more than 48 KB of shared memory a block,
+     and (9, 16,383, 1,563), the width of 50k features; each with two
+     all-miss reads, a read alternating two classes (every position starts
+     a run), a read matched everywhere with id -1 and 2% of matched
+     positions with id -1 (row 0 at W <= 32, all ones above); then on
+     family-blocked bitsets (kernel_bench.family_case: each class a subset
+     of one ~32-word block, so that the kernel's active list of still-set
+     words thins out, empties or stays full mid-read, and starts past lane
+     31) at W in {33, 157, 625, 1,563} x P in {40, 96}, at (9, 16,383,
+     1,563) and at (5, 16,383, 30,000), whose rows the kernel walks in two
+     tiles of words;
      then (A) monocls at W = 625: the 20k library off the group probe
      (NIMBLE_TPU_NO_GROUP_PROBE=1 on the index phase 9 built, which the
      reference also takes to monocls, rather than a second 20k index for
@@ -95,7 +102,7 @@ after building and checking their kernels:
      reads, 16,384 reads cuda against cpu.
  18. the report (`report`, then `report --device` on the card): (a) the
      tagged pairs' align TSV of phase 5, host against `--device` (and
-     `--device cpu`); (b) bench_data.write_report_tsv, 524,288 rows
+     `--device cpu`); (b) bench_data.write_report_tsv, 262,144 rows
      (cut from 2,097,152; `python3 -m nimble_tpu_torch.report_bench`
      runs any size) over HLA-100's names (10,000 cells, 1-16 reads a UMI, 10% off
      reads), host exact, `--stream` and `--device` twice, each with its
@@ -120,11 +127,11 @@ after building and checking their kernels:
      synthetic tables at W = 12, 47 and 64 with a full 64-row stash (33 KB
      of shared memory at W = 64), timed; one stacked step by stage (window,
      merged probe, the three libraries' tails, pack;
-     kernel_bench.stacked_stages); (b) 524,288 single-end reads through
+     kernel_bench.stacked_stages); (b) 262,144 single-end reads through
      `align` stacked (NIMBLE_TPU_STACK=1) and by default (one engine per
      library, each on the group path), every library's TSV byte-identical,
      both walls; (c) the same under `--probe mono` (the separate engines on
-     the mono path); (d) 131,072 10x-shaped pairs through fastq-to-bam ->
+     the mono path); (d) 65,536 10x-shaped pairs through fastq-to-bam ->
      stacked and separate `align` (byte-identical) -> `report`; (e)
      16,384 reads on cuda against cpu on both stacks, byte-identical. Each
      run must take its path (stacked, or one engine per library on the
@@ -184,7 +191,10 @@ after building and checking their kernels:
      (mono_probe) and on the 20k library with its class bands
      (band_tree_expand); every grid's score, pass_ and full bits (padding
      words included) == the same grid on [cpu] x n with the plain
-     versions, the (2, 1) grids == the unmeshed cuda engine; each shard's
+     versions, the (2, 1) grids == the unmeshed cuda engine, and every
+     intersect_class_bits call of a grid's step (one per feature slice)
+     == its plain version, with the reads each slice empties at its first
+     row (kernel_bench.intersect_walk); each shard's
      table bytes and plan_index_placement of the 20k index at the card's
      memory printed; (c) a coordinated world of two CLI processes on
      phase 5's reads (JAX_COORDINATOR_ADDRESS on a free port, gloo, both
@@ -197,8 +207,10 @@ for the first chunk of the reads, and that chunk's step is timed by stage
 (window, probe, intersection, combine + pack; kernel_bench.class_stages)
 with CUDA events. On B, E and D (over class_bits) intersect_class_bits ==
 its plain version (torch.equal) at the arguments the engine passes it for
-that chunk, timed with its bytes, bound, share and the runs a read walks
-(mean and maximum), the step's stages timed again with the plain version
+that chunk, timed with what its walk needs (kernel_bench.intersect_walk:
+the runs a read walks, its distinct classes, the sectors a run needs, the
+reads emptied early) and the bytes, bound and share of that count and of
+the full-row count, the step's stages timed again with the plain version
 in its place; their `align` runs must launch it, as phase 24's grids over
 the 20k library's class_bits must. Depths cut to fit them: phases 5 and 7 from 2,097,152
 reads to 1,048,576, phase 9 from 1,048,576 reads to 524,288.
@@ -243,7 +255,6 @@ import importlib.util
 import io
 import itertools
 import json
-import math
 import os
 import re
 import shutil
@@ -292,13 +303,17 @@ NO_GROUP = {"NIMBLE_TPU_NO_GROUP_PROBE": "1"}
 
 # the report phase (18): bench_data.write_report_tsv's workload, cut to
 # keep the script inside its time: (b) from 2,097,152 rows to 1,048,576,
-# then both to half to make room for phase 20
-N_REPORT_ROWS = 524_288
+# then both to half to make room for phase 20, and (b) to half again for
+# the intersection's checks of phases 13 and 24 (the script ran 1,010-1,176
+# s on two H100 hosts before); (c) stays at 262,144 rows, the fewest that
+# name all 20,000 features (W = 625) of the 20k library
+N_REPORT_ROWS = 262_144
 N_REPORT_WIDE = 262_144
 
-# the stacked engine (phase 19): bench_data.write_stacked's three libraries
-N_STACK_READS = 524_288
-N_STACK_PAIRS = 131_072
+# the stacked engine (phase 19): bench_data.write_stacked's three libraries;
+# reads and pairs cut to half for the same reason as the report's
+N_STACK_READS = 262_144
+N_STACK_PAIRS = 65_536
 N_STACK_CMP = 16_384
 # mono_probe at S = 2 on synthetic tables: these W (W_cat of the workload,
 # of a W = 47 library beside narrow ones, STACK_MAX_WORDS), at the main
@@ -364,8 +379,12 @@ sys.exit(rc)
 """ % PROC_DEADLINE_S
 
 
+_T0 = time.perf_counter()
+
+
 def say(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    """A line of the log, with the seconds since the script started."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] [{phase}] {msg}", flush=True)
 
 
 def cli(args):
@@ -1291,27 +1310,51 @@ def intersect_case(B: int, P: int, C: int, W: int, seed: int):
 
 # intersect_class_bits on synthetic arguments: every W crossed with every P
 # at B = INTERSECT_B (not a multiple of the kernel's 8 warps a block), and
-# run lists too long for 8 warps' shared memory
+# run lists too long for 8 warps' shared memory; then family-blocked
+# bitsets (kernel_bench.family_case, as tests/test_torch_intersect.py), at
+# FAMILY_W x FAMILY_P and in long reads, the widest walked in two tiles
 INTERSECT_W = (1, 17, 32, 33, 157, 625)
 INTERSECT_P = (1, 31, 33, 92, 120)
 INTERSECT_B = 1_001
 INTERSECT_LONG = ((77, 1_600, 33), (9, 16_383, 157))  # (B, P, W): 64 KB of lists, 3 warps a block
+FAMILY_W = (33, 157, 625, 1_563)
+FAMILY_P = (40, 96)
+FAMILY_LONG = ((9, 16_383, 1_563), (5, 16_383, 30_000))  # 50k features; a row past shared memory
 
 
 def phase_intersect_kernel() -> int:
-    """intersect_class_bits == its plain version on the synthetic cases
-    (intersect_case): W in INTERSECT_W (W % 4 != 0 among them, both sides of
-    32) crossed with P in INTERSECT_P, and the long run lists. Returns the
-    max |diff|."""
+    """intersect_class_bits == its plain version on the synthetic cases:
+    intersect_case's dense bitsets at W in INTERSECT_W (W % 4 != 0 among
+    them, both sides of 32) crossed with P in INTERSECT_P and the long run
+    lists, and at (9, 16,383, 1,563); family_case's family-blocked ones,
+    whose active lists thin out, empty or stay full mid-read, at FAMILY_W x
+    FAMILY_P and FAMILY_LONG. Returns the max |diff|."""
+    from nimble_tpu_torch import kernel_bench as KB
+
     t0 = time.perf_counter()
     err = 0
-    cases = [(INTERSECT_B, P, W) for W in INTERSECT_W for P in INTERSECT_P] + list(INTERSECT_LONG)
+    cases = [(INTERSECT_B, P, W) for W in INTERSECT_W for P in INTERSECT_P] + [*INTERSECT_LONG, FAMILY_LONG[0]]
     for B, P, W in cases:
         args = intersect_case(B, P, 3000, W, seed=B * P + W)
         err = max(err, check_intersect(f"synthetic B={B} P={P} W={W}", *args, quiet=True))
-    say("kernel", f"intersect_class_bits == its plain version on {len(cases)} synthetic cases (B={INTERSECT_B}, W in "
-        f"{INTERSECT_W} x P in {INTERSECT_P}; (B, P, W) in {INTERSECT_LONG}; all-miss reads, a read whose every "
-        f"position starts a run, matched positions with id -1 on both sides of W = 32) in "
+    say("kernel", f"intersect_class_bits == its plain version on {len(cases)} dense synthetic cases (B={INTERSECT_B}, "
+        f"W in {INTERSECT_W} x P in {INTERSECT_P}; (B, P, W) in {(*INTERSECT_LONG, FAMILY_LONG[0])}; all-miss "
+        f"reads, a read whose every position starts a run, matched positions with id -1 on both sides of W = 32) "
+        f"in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    family = [(INTERSECT_B, P, W) for W in FAMILY_W for P in FAMILY_P] + list(FAMILY_LONG)
+    for B, P, W in family:
+        C = 1_000 if W > 10_000 else 3_000  # at least 6 + the family count (938 at W = 30,000)
+        args = tuple(torch.from_numpy(a).to(dev) for a in KB.family_case(B, P, C, W, seed=B * P + W))
+        err = max(err, check_intersect(f"family-blocked B={B} P={P} W={W}", *args, quiet=True))
+        if P > 1_000:
+            continue
+        walk = KB.intersect_walk(*args)
+        say("kernel", f"intersect_class_bits family-blocked B={B} P={P} W={W}: equals the plain version; runs a "
+            f"read {walk['mean_runs']:.2f} (max {walk['max_runs']}), distinct classes {walk['distinct_classes']:.2f}, "
+            f"sectors a run {walk['sectors_per_run']:.2f}, reads emptied with runs left {walk['emptied_early']} of {B}")
+    say("kernel", f"intersect_class_bits == its plain version on {len(family)} family-blocked cases in "
         f"{time.perf_counter() - t0:.1f} s")
     return err
 
@@ -1319,21 +1362,29 @@ def phase_intersect_kernel() -> int:
 def time_intersect(tag: str, what: str, args):
     """intersect_class_bits on the arguments of path `tag` (`what` they
     are): == its plain version, the kernel's time (kernel_bench.device_ms),
-    the plain version's, the bytes, bound, share and the runs a read
-    walks. Returns (max |diff|, ms, plain ms, bound ms)."""
+    the plain version's; what the walk needs (kernel_bench.intersect_walk:
+    the runs a read walks, its distinct classes, the sectors a run needs,
+    the reads emptied early) and the bytes, bound and share it gives,
+    beside the full-row count's. Either share above 1.05 is a fault in the
+    count. Returns (max |diff|, ms, plain ms, bound ms)."""
     from nimble_tpu_torch import kernel_bench as KB
     from nimble_tpu_torch.align import kernels as K
 
     err = check_intersect(f"{tag} ({what})", *args)
     ms = KB.device_ms(lambda: K.intersect_class_bits(*args))
     plain = cuda_ms(lambda: K.intersect_class_bits_reference(*args))
-    n_bytes = KB.kernel_bytes("intersect_class_bits", args)
-    bound = KB.bound_ms(n_bytes)
-    runs = KB.run_stats(args[0], args[1], args[2].shape[1])
+    walk, n_bytes, full_bytes = KB.intersect_bytes(args)
+    bound, full_bound = KB.bound_ms(n_bytes), KB.bound_ms(full_bytes)
     say(tag, f"intersect_class_bits B={args[0].shape[0]} P={args[0].shape[1]} "
-        f"C={args[2].shape[0]} W={args[2].shape[1]}: kernel {ms:.4f} ms on the card (CUDA graph, median of 25), "
-        f"{n_bytes / 1e6:.1f} MB, bound {bound:.4f} ms, share {bound / ms:.3f}; plain {plain:.4f} ms; runs a read: "
-        f"mean {runs['mean_runs']:.2f}, max {runs['max_runs']}")
+        f"C={args[2].shape[0]} W={args[2].shape[1]}: kernel {ms:.4f} ms on the card (CUDA graph, median of 25); "
+        f"the walk's sectors {n_bytes / 1e6:.1f} MB, bound {bound:.4f} ms, share {bound / ms:.3f}; full rows "
+        f"{full_bytes / 1e6:.1f} MB, bound {full_bound:.4f} ms, share {full_bound / ms:.3f}; plain {plain:.4f} ms; "
+        f"runs a read: mean {walk['mean_runs']:.2f}, max {walk['max_runs']}; distinct classes a read "
+        f"{walk['distinct_classes']:.2f}; sectors a run needs {walk['sectors_per_run']:.2f}; reads emptied with "
+        f"runs left {walk['emptied_early']}, empty after the first row {walk['empty_at_first']}")
+    if max(bound, full_bound) / ms > 1.05:
+        raise AssertionError(f"{tag}: intersect_class_bits ran faster than its bound ({ms:.4f} ms against "
+                             f"{bound:.4f} and {full_bound:.4f}): the byte count is wrong")
     return err, ms, plain, bound
 
 
@@ -1497,6 +1548,7 @@ def phase_cls_paths(work: str, wlib: str, wfq: str, wr1: str, wr2: str, wcmp: st
     ms, bound ms) on each class-band path, intersect_class_bits's by tag
     ("A" over class_bits, "B", "E", "D") and its synthetic max |diff|,
     summed launch counts)."""
+    from nimble_tpu_torch import kernel_bench as KB
     from nimble_tpu_torch.align import tables as TT
     from nimble_tpu_torch.align.pipeline import make_runner
 
@@ -1516,11 +1568,7 @@ def phase_cls_paths(work: str, wlib: str, wfq: str, wr1: str, wr2: str, wcmp: st
     cli(["index", "--reference", blib, *MONO])
     say("data", f"{os.path.basename(blib)} index --probe mono built in {time.perf_counter() - t0:.2f} s")
     results.append(phase_cls(work, "E", blib, bfq, bcmp, "monocls", MONO, group_g=0))
-    index = make_runner(blib, os.devnull, group_g=0).index
-    n_keys = int(((index.table_vsame >= 0) | (index.table_vdiff >= 0)).sum()
-                 + ((index.stash_vsame >= 0) | (index.stash_vdiff >= 0)).sum())
-    # monocls's smallest candidate table, less one byte: no placement fits
-    cap = (1 << (math.ceil(math.log2(n_keys)) + 1)) * TT.MONO_SLOTS * 4 * 4 - 1
+    n_keys, cap = KB.two_choice_cap(make_runner(blib, os.devnull, group_g=0).index)
     say("data", f"{os.path.basename(blib)}: {n_keys} keys, the placement cap set to {cap} B "
         "(NIMBLE_TPU_MONO_MAX_BYTES, as read at import)")
     default_cap = TT.MONO_MAX_BYTES
@@ -2205,6 +2253,8 @@ def mesh_grids(tag: str, index, config, codes, lens, grids, kernels, group_probe
     score, pass_ and the full bits, padding words included, must agree
     exactly, and the (2, 1) grid must equal the unmeshed cuda engine.
     Returns (summed launch counts, max |diff|)."""
+    from nimble_tpu_torch import kernel_bench as KB
+    from nimble_tpu_torch.align import engine as TE
     from nimble_tpu_torch.align import kernels as K
     from nimble_tpu_torch.align.engine import AlignEngine
     from nimble_tpu_torch.align.pipeline import _round_len
@@ -2231,9 +2281,19 @@ def mesh_grids(tag: str, index, config, codes, lens, grids, kernels, group_probe
         eng, t_build = build(grid, dev)
         for w in wrappers.values():
             w.launches = 0
+        calls = []
+
+        def capture(ids, matched, class_bits):  # every intersection of the step, each slice's
+            calls.append((ids.clone(), matched.clone(), class_bits))
+            return K.intersect_class_bits(ids, matched, class_bits)
+
+        TE.intersect_class_bits = capture
         t0 = time.perf_counter()
-        got = dense_out(eng.align_batch(codes, lens), W)
-        torch.cuda.synchronize()
+        try:
+            got = dense_out(eng.align_batch(codes, lens), W)
+            torch.cuda.synchronize()
+        finally:
+            TE.intersect_class_bits = K.intersect_class_bits
         wall = time.perf_counter() - t0
         for k, w in wrappers.items():
             counts[k] += w.launches
@@ -2241,6 +2301,14 @@ def mesh_grids(tag: str, index, config, codes, lens, grids, kernels, group_probe
         for k in kernels:
             if ran[k] <= 0:
                 raise AssertionError(f"(24) {tag} {grid}: the grid never launched the {k} kernel")
+        for i, args in enumerate(calls):  # the kernel against its plain version on each slice's arguments
+            max_err = max(max_err, check_intersect(f"(24) {tag} {grid} call {i}", *args, quiet=True))
+            walk = KB.intersect_walk(*args)
+            say("mesh", f"(24b) {tag} grid {grid[0]}x{grid[1]} intersect_class_bits call {i}: B={args[0].shape[0]} "
+                f"W={args[2].shape[1]} equals the plain version; reads empty after the first row "
+                f"{walk['empty_at_first']}, emptied with runs left {walk['emptied_early']}; sectors a run needs "
+                f"{walk['sectors_per_run']:.2f}; runs a read {walk['mean_runs']:.2f}")
+        del calls
         path, shard_bytes, chunk, held = eng.path, eng.shard_table_bytes, eng.chunk_size, eng.table_bytes
         where = [str(x) for x in eng.mesh.devices]
         del eng

@@ -33,9 +33,20 @@ WORK/workloads.json.
 against experimental variants of it, built from csrc/band_tree_expand.cu
 with a patch (`band_variants`).
 
+  python3 -m nimble_tpu_torch.kernel_bench intersect WORK [--against CU ...]
+
+`intersect` writes the class-id workloads into WORK (`intersect_workloads`:
+chip_smoke.py's A, B, E and D at one chunk of reads) and prints a JSON line
+for each and one for all: intersect_class_bits on the arguments each
+engine passes it, this checkout's kernel beside the kernel built from each
+`--against` source (another checkout's csrc/intersect_class_bits.cu, e.g.
+the parent's, unpacked with `git archive` into a gitignored directory),
+times, the walk's needs, bytes and bounds (`intersect`).
+
 `class_stages` and `stage_ms` cut one step of a class-id wide path
 (groupcls, monocls, the wide two-choice probe) into its stages and time
-each on the card (`run_stats`: the runs a read's intersection walks), and
+each on the card (`intersect_walk`: the runs a read's intersection walks
+and the row sectors they need), and
 `stacked_stages` one step of the stacked engine (window, merged probe,
 the libraries' tails, pack); chip_smoke.py prints them.
 
@@ -139,10 +150,135 @@ def band_tree_expand_bytes(B: int, Q1: int, W: int, row_bytes: int) -> int:
     return B * Q1 * 5 + 4 * B * W + row_bytes
 
 
-def intersect_class_bits_bytes(B: int, P: int, W: int, n_rows: int) -> int:
-    """class_ids and matched read, (B, W) written; plus the n_rows distinct
-    class rows this input needs (the classes at matched positions), once."""
+def intersect_class_bits_bytes(B: int, P: int, W: int, row_bytes: int) -> int:
+    """class_ids and matched read, (B, W) written; plus the row_bytes of
+    class rows this input needs (`intersect_walk`)."""
+    return 5 * B * P + 4 * B * W + row_bytes
+
+
+def intersect_class_bits_full_row_bytes(B: int, P: int, W: int, n_rows: int) -> int:
+    """The count before the walk: class_ids and matched read, (B, W)
+    written, and each of the n_rows distinct classes at matched positions
+    read whole, once."""
     return 5 * B * P + 4 * B * W + 4 * W * n_rows
+
+
+def intersect_walk(class_ids, matched, class_bits) -> dict:
+    """What the intersection kernel needs of class_bits on these arguments,
+    stepping each read's runs in the kernel's order (run starts by
+    csrc/intersect_class_bits.cu's rule): a read's first run needs its
+    whole row, each later run the 32-byte sectors of its row that hold a
+    word still nonzero in the read's running AND just before that run (AND
+    with a zero word is zero whatever the row holds). `row_bytes` counts
+    each distinct (class, sector of its row) that some read needs once, 32
+    bytes, and a sector at either end of a row, which it shares with the
+    next row, only for the row's own words, so that a whole row counts its
+    4W bytes and no sector counts twice. Also: the runs a read walks (mean,
+    max), its distinct classes (mean), the sectors a run needs (mean over
+    runs, each read's own), the reads whose AND emptied with runs left,
+    the reads whose first row is zero (`empty_at_first`), and the distinct
+    classes at matched positions that the full-row count reads whole
+    (`full_rows`)."""
+    import torch
+
+    B, P = class_ids.shape
+    C, W = class_bits.shape
+    dev = class_bits.device
+    neg = -1 if W > 32 else 0  # the row a matched negative id names, if any
+    cls = torch.where(matched, torch.where(class_ids < 0, neg, class_ids.clamp(max=C - 1)), -1).long()
+    prev = torch.cat([torch.full_like(cls[:, :1], -2), cls[:, :-1]], dim=1)
+    start = (cls >= 0) & (cls != prev)
+    n = start.sum(dim=1)
+    R = int(n.max()) if B else 0
+    runs = torch.full((B, R + 1), -1, dtype=torch.long, device=dev)
+    runs.scatter_(1, torch.where(start, start.cumsum(dim=1) - 1, R), cls)
+    runs = runs[:, :R]
+    S = W // 8 + 2  # the sectors a row can touch
+    words = torch.arange(W, device=dev)
+    need = torch.zeros(C * S, dtype=torch.bool, device=dev)
+    emptied = torch.zeros(B, dtype=torch.bool, device=dev)
+    n_sectors = at_first = 0
+    acc = None
+    for i in range(R):
+        c = runs[:, i]
+        has = c >= 0
+        cl = c.clamp(min=0)
+        live = has[:, None] if acc is None else has[:, None] & (acc != 0)
+        sector = ((cl * W) % 8)[:, None] + words[None, :]
+        hit = torch.zeros((B, S), dtype=torch.int32, device=dev).scatter_add_(
+            1, sector // 8, live.expand(B, W).int()) > 0
+        n_sectors += int(hit.sum())
+        need[(cl[:, None] * S + torch.arange(S, device=dev))[hit]] = True
+        row = torch.where(has[:, None], class_bits[cl], torch.full((), -1, dtype=class_bits.dtype, device=dev))
+        acc = row if acc is None else acc & row
+        empty = has & (acc == 0).all(dim=1)
+        if i == 0:
+            at_first = int(empty.sum())
+        emptied |= empty & (n > i + 1)
+    hit = need.nonzero()[:, 0]
+    lo = 8 * (hit % S) - (hit // S) * W % 8  # the sector's first word in its row
+    row_bytes = int(4 * ((lo + 8).clamp(max=W) - lo.clamp(min=0)).clamp(min=0).sum())
+    ordered = runs.sort(dim=1).values
+    first = torch.cat([torch.ones_like(ordered[:, :1], dtype=torch.bool), ordered[:, 1:] != ordered[:, :-1]], dim=1)
+    return {"mean_runs": float(n.double().mean()) if B else 0.0, "max_runs": R,
+            "distinct_classes": float(((ordered >= 0) & first).sum(dim=1).double().mean()) if B else 0.0,
+            "sectors_per_run": n_sectors / max(int(n.sum()), 1), "emptied_early": int(emptied.sum()),
+            "empty_at_first": at_first,
+            "row_bytes": row_bytes, "full_rows": int(torch.unique(class_ids[matched]).numel())}
+
+
+def intersect_bytes(args) -> tuple:
+    """(intersect_walk's dict, the bytes it counts, the full-row count) of
+    intersect_class_bits' arguments."""
+    class_ids, matched, class_bits = args
+    walk = intersect_walk(*args)
+    shape = (*class_ids.shape, class_bits.shape[1])
+    return (walk, intersect_class_bits_bytes(*shape, walk["row_bytes"]),
+            intersect_class_bits_full_row_bytes(*shape, walk["full_rows"]))
+
+
+def family_case(B: int, P: int, C: int, W: int, seed: int):
+    """Intersection arguments in a real library's layout, as numpy (ids,
+    matched, class_bits): the W words cut into max(2, ceil(W / 32))
+    family blocks of W // that many words (about 32), spread evenly and
+    disjoint; each class a random subset of its family's block (each word
+    zero with probability 1/20, else 15/16 of its bits set); classes 0-3
+    all ones, class 4 only its last word set (all ones) and class 5 a
+    random last word. Class ids come in runs of about 1.5 positions, 5% of
+    positions unmatched (half of them with an id the mask must hide). By
+    read r % 8: 0-4 draw from one family, so the running AND's live words
+    thin out and may run out; 5 also holds, matched mid-read, one class of
+    the family half the blocks away, so the AND empties there; 6 only the
+    all-ones classes, so every word stays live; 7 only classes 4 and 5, so
+    the one live word is the last (past lane 31 where W > 32). Needs
+    C >= 6 + the family count."""
+    rng = np.random.default_rng(seed)
+    n_fam = max(2, -(-W // 32))
+    span = W // n_fam
+    starts = np.linspace(0, W - span, n_fam).round().astype(np.int64)
+    fam = np.arange(C) % n_fam
+    cb = np.zeros((C, W), dtype=np.int64)
+    dense = np.bitwise_or.reduce(rng.integers(-(1 << 31), 1 << 31, size=(4, C, span), dtype=np.int64), axis=0)
+    np.put_along_axis(cb, starts[fam][:, None] + np.arange(span), np.where(rng.random((C, span)) < 0.05, 0, dense),
+                      axis=1)
+    cb[:6] = 0
+    cb[:4] = -1
+    cb[4, -1], cb[5, -1] = -1, rng.integers(1, 1 << 31)
+    members = [np.nonzero(fam[6:] == f)[0] + 6 for f in range(n_fam)]
+    new = rng.random((B, P)) < 0.65
+    new[:, 0] = True
+    run = np.cumsum(new, axis=1) - 1
+    ids = np.empty((B, P), dtype=np.int64)
+    matched = rng.random((B, P)) >= 0.05
+    for r in range(B):
+        f = rng.integers(n_fam)
+        pool = {6: np.arange(4), 7: np.array([4, 5])}.get(r % 8, members[f])
+        ids[r] = rng.choice(pool, size=P)[run[r]]
+        if r % 8 == 5:
+            ids[r, P // 2] = rng.choice(members[(f + n_fam // 2) % n_fam])
+            matched[r, P // 2] = True
+    ids[~matched & (rng.random((B, P)) < 0.5)] = -1
+    return ids.astype(np.int32), matched, cb.astype(np.int32)
 
 
 def kernel_bytes(name: str, args) -> int:
@@ -156,26 +292,10 @@ def kernel_bytes(name: str, args) -> int:
         bucket, h1, hi, lo, _fc, _pal, valid, stash, W = args
         return mono_probe_bytes(hi.numel(), W, mono_table_bytes(bucket, h1, hi, lo, valid, W) + stash.numel() * 4)
     if name == "intersect_class_bits":
-        class_ids, matched, class_bits = args
-        rows = int(torch.unique(class_ids[matched]).numel())
-        return intersect_class_bits_bytes(*class_ids.shape, class_bits.shape[1], rows)
+        return intersect_bytes(args)[1]
     pages, idx_sel, has_sel, W, Pw = band_args(args)
     rows = int(torch.unique(idx_sel[has_sel]).numel())
     return band_tree_expand_bytes(idx_sel.shape[0], idx_sel.shape[1], W, rows * (1 + 2 * Pw) * 4)
-
-
-def run_stats(class_ids, matched, W: int) -> dict:
-    """The runs the intersection kernel walks for each read (run starts by
-    csrc/intersect_class_bits.cu's rule: a matched position whose class is
-    a row and differs from the position before): their mean and maximum
-    over reads."""
-    import torch
-
-    neg = -1 if W > 32 else 0  # the row a matched negative id names, if any
-    cls = torch.where(matched, torch.where(class_ids < 0, neg, class_ids), -1)
-    prev = torch.cat([torch.full_like(cls[:, :1], -2), cls[:, :-1]], dim=1)
-    n = ((cls >= 0) & (cls != prev)).sum(dim=1)
-    return {"mean_runs": float(n.double().mean()), "max_runs": int(n.max())}
 
 
 def band_args(args):
@@ -647,10 +767,166 @@ def variants(work: str) -> dict:
             "spread": band_spread(*band_args(args)[:3]), "ms": band_variants(args)}
 
 
+# the class-id workloads of intersect_workloads: chip_smoke.py's phases
+# 13 (A), 14 (B), 16 (E) and 17 (D), one chunk of reads each
+N_CLS_READS = 131_072
+GCLS_FAMILIES = 5
+
+
+def _cls_args(lib: str, group_g, fq: str, cap=None, class_bits: bool = False, device: str = "cuda"):
+    """The arguments that the engine `align` builds for lib (group_g as
+    `align` passes it; with `class_bits`, off the group probe and over
+    class_bits rather than the class bands; under the placement cap `cap`,
+    tables.MONO_MAX_BYTES, where given) passes intersect_class_bits for the
+    first chunk of fq's reads, and its path; on the card unless the caller
+    asks for the CPU."""
+    import copy
+
+    import torch
+
+    from nimble_tpu_torch.align import tables as TT
+    from nimble_tpu_torch.align.engine import AlignEngine
+    from nimble_tpu_torch.align.pipeline import _round_len, make_runner
+
+    r = make_runner(lib, os.devnull, group_g=group_g)
+    index = r.index
+    if class_bits:
+        index = copy.copy(index)
+        index._torch_class_bands = None  # bands infeasible: the class table ships as class_bits
+    default_cap = TT.MONO_MAX_BYTES
+    TT.MONO_MAX_BYTES = default_cap if cap is None else cap
+    try:
+        eng = AlignEngine(index, r.config, torch.device(device), chunk_size=None, max_len=_round_len(READ_LEN),
+                          paired=False, group_probe=False if class_bits else None)
+    finally:
+        TT.MONO_MAX_BYTES = default_cap
+    codes, lens = fastq_head(fq, eng.chunk_size, eng.max_len)
+    return captured(eng, codes, lens, "intersect_class_bits"), eng.path
+
+
+def two_choice_cap(index) -> tuple:
+    """(the keys of a --probe mono index, the placement cap one byte below
+    monocls's smallest candidate table): under that cap (tables.
+    MONO_MAX_BYTES) no placement fits, and the engine takes the wide
+    two-choice probe."""
+    import math
+
+    from nimble_tpu_torch.align import tables as TT
+
+    n_keys = int(((index.table_vsame >= 0) | (index.table_vdiff >= 0)).sum()
+                 + ((index.stash_vsame >= 0) | (index.stash_vdiff >= 0)).sum())
+    return n_keys, (1 << (math.ceil(math.log2(n_keys)) + 1)) * TT.MONO_SLOTS * 4 * 4 - 1
+
+
+def intersect_workloads(work: str) -> dict:
+    """The arguments the class-id engines pass intersect_class_bits for the
+    first chunk of their reads, as chip_smoke.py's phases pass them, by
+    tag: A the 20k library off the group probe over class_bits (monocls, W
+    = 625), B its first 5 families written allele-major (groupcls, W =
+    157), E B's library under --probe mono (monocls), D E under a placement
+    cap one byte below monocls's smallest table (the wide two-choice
+    probe). Writes the libraries, N_CLS_READS reads each and their indexes
+    into WORK."""
+    from nimble_tpu_torch import bench_data
+    from nimble_tpu_torch.__main__ import main
+    from nimble_tpu_torch.align.pipeline import make_runner
+    from nimble_tpu_torch.native_build import build_native
+
+    build_native()  # the C++ index builder for the 20k library
+    alib, afq, _, _ = bench_data.write_wide(os.path.join(work, "wide"), N_CLS_READS, 0)
+    blib, bfq, _, _ = bench_data.write_wide(os.path.join(work, "gcls"), N_CLS_READS, 0, families=GCLS_FAMILIES,
+                                            interleaved=True)
+    for lib, flags in ((alib, []), (blib, []), (blib, ["--probe", "mono"])):
+        if main(["index", "--reference", lib, *flags]) != 0:
+            raise RuntimeError(f"index {lib} failed")
+    cap = two_choice_cap(make_runner(blib, os.devnull, group_g=0).index)[1]
+    cases = {"A": (alib, None, afq, None, True, "monocls"), "B": (blib, None, bfq, None, False, "groupcls"),
+             "E": (blib, 0, bfq, None, False, "monocls"), "D": (blib, 0, bfq, cap, False, "two-choice")}
+    out = {}
+    for tag, (lib, g, fq, cap_, bits, path) in cases.items():
+        args, took = _cls_args(lib, g, fq, cap_, bits)
+        if took != path:
+            raise AssertionError(f"{tag}: the engine took the {took} path, not {path}")
+        out[tag] = args
+    return out
+
+
+def _intersect_lib(cu: str, build_dir: str):
+    """An intersect_class_bits source (another checkout's
+    csrc/intersect_class_bits.cu) built alone with the library's nvcc flags
+    into a directory under build_dir, and loaded: its
+    nt_intersect_class_bits."""
+    import ctypes
+    import subprocess
+    import tempfile
+
+    from nimble_tpu_torch.align import kernels as K
+
+    os.makedirs(build_dir, exist_ok=True)
+    so = os.path.join(tempfile.mkdtemp(dir=build_dir), "intersect.so")
+    subprocess.run([K._nvcc(), *K.NVCC_FLAGS, "-shared", "-o", so, cu], check=True, capture_output=True)
+    fn = ctypes.CDLL(so).nt_intersect_class_bits
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    fn.restype, fn.argtypes = ctypes.c_int, [i32, p, p, i64, i32, p, i64, i32, p, p]
+    return fn
+
+
+def intersect(work: str, against) -> dict:
+    """intersect_class_bits on A's, B's, E's and D's arguments
+    (intersect_workloads): this checkout's kernel and the kernel of each
+    source in `against` (built alone into WORK/builds), each == the plain
+    version (torch.equal), timed with device_ms in the order: the others,
+    this one, this one, the others; with what the walk needs
+    (intersect_walk) and the bytes, bound and share of that count and of
+    the full-row count."""
+    import subprocess
+
+    import torch
+
+    from nimble_tpu_torch.align import kernels as K
+
+    K.build()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    others = {cu: _intersect_lib(cu, os.path.join(work, "builds")) for cu in against}
+    out = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "cases": {}}
+    for tag, args in intersect_workloads(work).items():
+        ids, matched, class_bits = args
+        (B, P), (C, W) = ids.shape, class_bits.shape
+        res = torch.empty((B, W), dtype=torch.int32, device=ids.device)
+
+        def call(fn):
+            err = fn(K._device_index(ids.device), ids.data_ptr(), matched.data_ptr(), B, P, class_bits.data_ptr(), C,
+                     W, res.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"intersect_class_bits of another source failed: cudaError {err}")
+            return res
+
+        fns = {cu: (lambda fn=fn: call(fn)) for cu, fn in others.items()}
+        want = K.intersect_class_bits_reference(*args)
+        for label, fn in {"kernel": lambda: K.intersect_class_bits(*args), **fns}.items():
+            got = fn().clone()
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"{tag}: {label} != the plain version")
+        times = {label: [] for label in ("kernel", *fns)}
+        for label in (*fns, "kernel", "kernel", *fns):
+            times[label].append(device_ms(fns.get(label, lambda: K.intersect_class_bits(*args))))
+        walk, n_bytes, full = intersect_bytes(args)
+        out["cases"][tag] = {"B": B, "P": P, "C": C, "W": W, "ms": times, "walk": walk, "bytes": n_bytes,
+                             "bound_ms": bound_ms(n_bytes), "full_row_bytes": full, "full_row_bound_ms": bound_ms(full)}
+        print(json.dumps({tag: out["cases"][tag]}), flush=True)
+        del args, ids, matched, class_bits, res, want
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("step", choices=("prepare", "run", "variants"))
-    ap.add_argument("work", help="directory of the workloads (made by prepare)")
+    ap.add_argument("step", choices=("prepare", "run", "variants", "intersect"))
+    ap.add_argument("work", help="directory of the workloads (made by prepare; by intersect itself)")
+    ap.add_argument("--against", nargs="*", default=[],
+                    help="intersect: other intersect_class_bits sources to time beside this checkout's")
     args = ap.parse_args(argv)
     import torch
 
@@ -661,6 +937,8 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         prepare(args.work)
         print(json.dumps({"prepared": args.work, "s": time.perf_counter() - t0}), flush=True)
+    elif args.step == "intersect":
+        print(json.dumps(intersect(args.work, args.against)), flush=True)
     else:
         print(json.dumps((run if args.step == "run" else variants)(args.work)), flush=True)
     return 0
