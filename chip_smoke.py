@@ -201,6 +201,19 @@ after building and checking their kernels:
      on cuda:0): merged TSV == phase 5's, no shard or sentinel left, walls
      beside phase 20 (b)'s world; (d) `--mesh data=2` on the one card
      exits 1, names the one device and writes no file.
+ 25. (run right after phase 12) the gband path's other table layouts on
+     the 20k library (W = 625): the index of phase 9 loaded, the default
+     layout's tables (single-hash placement, dense rows) from its sidecar,
+     then each of the reference's other layouts (NIMBLE_TPU_GBAND_PLACEMENT=
+     two, NIMBLE_TPU_GBAND_INDIRECT=1 and both) derived from them (only the
+     placement runs), written to its own sidecar and loaded back; each
+     layout's table bytes on the card, its sidecar's derivation and load,
+     its engine build (the copy to the card); one 65,536-read step of each
+     by stage (window, probe, band_tree_expand, combine + pack), in turns,
+     its packed output equal to the default's; then phase 12's 16,384 reads
+     through `align` under the two-choice and the indirect layout, each on
+     the gband path with its sidecar loaded, its TSV byte-identical to
+     phase 12's cuda TSV, its kernels launched;
 On 13-17 the engine `align` builds must take the named path (the run log's
 `engine` event), kmer_keys == its plain version at the arguments it passes
 for the first chunk of the reads, and that chunk's step is timed by stage
@@ -1088,7 +1101,10 @@ def phase_wide_kernel(lib: str, fq: str):
     """The engine `align` builds for the 20k library, timed by part, then
     band_tree_expand against its plain version on the (idx_sel, has_sel)
     its gband step passes for the first chunk of real reads, and on the
-    synthetic cases; timed at the main-path shape."""
+    synthetic cases; timed at the main-path shape. Returns the error, the
+    times and (the index loaded again from its file, with the default
+    gband tables loaded from the sidecar; the library's config; the two
+    loads' seconds)."""
     from nimble_tpu_torch import kernel_bench as KB
     from nimble_tpu_torch.index.builder import KmerIndex
     from nimble_tpu_torch.align import engine as TE
@@ -1132,7 +1148,8 @@ def phase_wide_kernel(lib: str, fq: str):
     say("wide", f"engine build by part: index load {t_load:.2f} s (again: {t_reload:.2f} s), gband host "
         f"build + sidecar write {t_build:.2f} s, sidecar load {t_side:.2f} s, tables to the card {t_h2d:.2f} s "
         f"(of it the band table's re-lay on the card {stage_wall('gband_relayout'):.4f} s, stage log)")
-    del again, host, fresh
+    del again, host
+    loaded = (fresh, r.config, t_reload, t_side)  # for phase 25: the index and its default tables as loaded
 
     errs = []
     # the CLI's read width (100 bp reads round up to L = 112), then the
@@ -1177,7 +1194,7 @@ def phase_wide_kernel(lib: str, fq: str):
             raise AssertionError(f"band_tree_expand {label}: no read has bits, so nothing was compared")
         errs.append(err)
     torch.cuda.empty_cache()
-    return max(errs), ms, plain_ms, bound
+    return max(errs), ms, plain_ms, bound, loaded
 
 
 def phase_wide_main(work: str, lib: str, fq: str, r1: str, r2: str):
@@ -1198,7 +1215,8 @@ def phase_wide_main(work: str, lib: str, fq: str, r1: str, r2: str):
 def compare_devices(label: str, lib: str, fq: str, flags=(), n: int = N_WIDE_CMP, path: str = ""):
     """The same reads through `align --device cuda` and `--device cpu`:
     the TSVs must be byte-identical, and every engine of both runs must
-    take `path` when it is given (the run log's `engine` events)."""
+    take `path` when it is given (the run log's `engine` events). Returns
+    the cuda run's TSV."""
     outs = {}
     log = os.environ["NIMBLE_TPU_RUNLOG"]
     for dev in ("cuda", "cpu"):
@@ -1217,6 +1235,132 @@ def compare_devices(label: str, lib: str, fq: str, flags=(), n: int = N_WIDE_CMP
             raise AssertionError(f"align ({label}) --device {dev}: the engines took the {paths} paths, not {path}")
     rows = same_bytes(f"align ({label}), --device cuda against --device cpu", outs["cuda"], outs["cpu"], lib)
     say("cmp", f"{n} reads, {label}: cuda and cpu TSVs byte-identical ({rows} rows)")
+    return outs["cuda"]
+
+
+# the gband layouts (phase 25): the reference's layouts beside the default
+# (single-hash placement, dense rows), each as (tag, environment); `align`
+# runs the first two on phase 12's reads
+GBAND_LAYOUTS = (
+    ("two-choice", {"NIMBLE_TPU_GBAND_PLACEMENT": "two", "NIMBLE_TPU_GBAND_INDIRECT": "0"}),
+    ("indirect", {"NIMBLE_TPU_GBAND_PLACEMENT": "single", "NIMBLE_TPU_GBAND_INDIRECT": "1"}),
+    ("two-choice indirect", {"NIMBLE_TPU_GBAND_PLACEMENT": "two", "NIMBLE_TPU_GBAND_INDIRECT": "1"}),
+)
+DEFAULT_LAYOUT = {"NIMBLE_TPU_GBAND_PLACEMENT": "single", "NIMBLE_TPU_GBAND_INDIRECT": "0"}
+LAYOUT_STEP_B = 65_536
+
+
+def phase_gband_layouts(lib: str, fq: str, cmp_fq: str, cmp_tsv: str, loaded, smi: str):
+    """The gband path's other table layouts on the 20k library (W = 625),
+    beside the default: in this process, on the index phase 10 loaded from
+    its file with the default layout's tables loaded from their sidecar
+    (`loaded`), each other layout's tables derived from the tables already
+    held (only the placement runs) and written to its own sidecar, then
+    loaded back; each layout's engine (the copy to
+    the card and its table bytes there); one LAYOUT_STEP_B-read step of
+    each by stage (window, probe, band_tree_expand, combine + pack;
+    kernel_bench.gband_stages), in turns, two rounds, each layout's packed
+    output equal to the default's, and its probe again with the stash cut
+    to one empty row (what the stash sweep costs). Then `align` on phase
+    12's reads under
+    the first two layouts: each engine on the gband path, its sidecar
+    loaded, the TSV byte-identical to phase 12's cuda TSV. Returns the
+    launch counts of those runs."""
+    from nimble_tpu_torch import kernel_bench as KB
+    from nimble_tpu_torch.align import engine as TE
+    from nimble_tpu_torch.align import tables as TT
+    from nimble_tpu_torch.align.pipeline import _round_len
+
+    dev = torch.device("cuda")
+    index, config, t_index, t_default = loaded
+    say("layouts", f"phase 10's index load {t_index:.2f} s and default sidecar load {t_default:.2f} s; {smi}")
+    codes, lens = KB.fastq_head(fq, LAYOUT_STEP_B, _round_len(READ_LEN))
+    c, ln = torch.from_numpy(codes).to(dev), torch.from_numpy(lens).to(dev)
+    engines = {}
+    for tag, env in (("default", DEFAULT_LAYOUT),) + GBAND_LAYOUTS:
+        with environ(env):
+            t0 = time.perf_counter()
+            host = TT.groupband_tables(index)
+            t_side = time.perf_counter() - t0
+            side = dict(index.gband_sidecar)
+            want = "loaded" if tag == "default" else "derived"  # the default: phase 10's load, held
+            if host is None or side["source"] != want or not os.path.exists(side["path"]):
+                raise AssertionError(f"layout {tag}: tables {side} ({want} expected)")
+            t_load = t_default
+            if tag != "default":  # the derived layout's sidecar, loaded back
+                t0 = time.perf_counter()
+                again = TT.load_gband_sidecar(side["path"], index)
+                t_load = time.perf_counter() - t0
+                if again is None or list(again) != list(host) or any(
+                        not np.array_equal(again[k], host[k]) for k in host):
+                    raise AssertionError(f"layout {tag}: its sidecar does not load back to the same tables")
+                del again
+            t0 = time.perf_counter()
+            eng = TE.AlignEngine(index, config, dev, chunk_size=LAYOUT_STEP_B, max_len=_round_len(READ_LEN))
+            torch.cuda.synchronize()
+            t_h2d = time.perf_counter() - t0
+        if eng.path != "gband":
+            raise AssertionError(f"layout {tag}: the engine took {eng.path}")
+        engines[tag] = eng
+        host_bytes = sum(v.nbytes for v in host.values())
+        say("layouts", f"{tag}: gband_bucket {tuple(host['gband_bucket'].shape)}"
+            + (f", gband_ptr8 {tuple(host['gband_ptr8'].shape)}" if "gband_ptr8" in host else "")
+            + f", stash {int((host['gband_stash_hi'] != -1).sum())}; tables on the card "
+            f"{eng.table_bytes / 1e9:.4f} GB (host arrays {host_bytes / 1e9:.4f} GB, sidecar "
+            f"{os.path.getsize(side['path']) / 1e9:.4f} GB); sidecar "
+            + ("loaded in phase 10" if tag == "default" else f"{side['source']} in {t_side:.2f} s")
+            + (f" from {os.path.basename(side['derived_from'])}" if "derived_from" in side else "")
+            + f", its load {t_load:.2f} s; engine build (copy to the card, band re-lay) {t_h2d:.2f} s; "
+            f"{smi}")
+    outs = {}
+    for tag, eng in engines.items():
+        x = None
+        for _, fn in KB.gband_stages(eng, c, ln):
+            x = fn(x)
+        outs[tag] = x
+        if not torch.equal(x, outs["default"]):
+            raise AssertionError(f"layout {tag}: the step's packed output differs from the default layout's")
+    stages = {tag: [] for tag in engines}
+    for _ in range(2):
+        for tag, eng in engines.items():
+            stages[tag].append(KB.stage_ms(KB.gband_stages(eng, c, ln)))
+    for tag, rounds in stages.items():
+        say("layouts", f"{tag}: one step by stage, B={LAYOUT_STEP_B} L={c.shape[1]} (CUDA events, the card "
+            "idle before each stage, median of 5; two rounds in turns with the other layouts): "
+            + "; ".join(", ".join(f"{k} {v:.3f}" for k, v in st.items()) + " ms" for st in rounds)
+            + f"; {smi}")
+    for tag, eng in engines.items():
+        # the probe with the stash cut to one empty row (its output is
+        # not the step's): what the stash sweep costs the probe
+        nostash = {**eng.tables, **{k: eng.tables[k][:1].clone() for k in TT.GBAND_KEYS if "stash" in k}}
+        nostash["gband_stash_hi"].fill_(-1)
+        cut = types.SimpleNamespace(tables=nostash, params=eng.params, pack=eng.pack)
+        st = KB.stage_ms(KB.gband_stages(cut, c, ln)[:2])
+        say("layouts", f"{tag}: the probe without its {eng.tables['gband_stash_hi'].shape[0]}-row stash sweep "
+            f"{st['probe']:.3f} ms (window {st['window']:.3f} ms; CUDA events, median of 5); {smi}")
+    del engines, outs, c, ln, index, host, loaded, nostash, cut
+    torch.cuda.empty_cache()
+
+    counts = {k: 0 for k in WIDE_KERNELS}
+    for tag, env in GBAND_LAYOUTS[:2]:
+        out = os.path.join(os.path.dirname(cmp_tsv), f"layout_{tag.replace(' ', '_')}.tsv")
+        log = os.environ["NIMBLE_TPU_RUNLOG"]
+        seen = os.path.getsize(log)
+        with environ(env):
+            _, rows, run = drive(f"gband {tag} layout (20k library)", ["--reference", lib, "--output", out,
+                                                                         "--input", cmp_fq],
+                                 N_WIDE_CMP, WIDE_KERNELS, lo=0.1, path="gband")
+        with open(log) as f:
+            f.seek(seen)
+            sides = [e for e in map(json.loads, filter(str.strip, f)) if e["event"] == "gband_sidecar"]
+        if not sides or any(e["source"] != "loaded" for e in sides):
+            raise AssertionError(f"align ({tag} layout): the gband tables were not loaded from the sidecar: {sides}")
+        same_bytes(f"align ({tag} layout) against the default layout", out, cmp_tsv, lib)
+        say("layouts", f"{N_WIDE_CMP} reads, {tag} layout: TSV byte-identical to the default layout's "
+            f"({rows} rows); sidecar {os.path.basename(sides[-1]['path'])} loaded in {sides[-1]['wall_s']:.2f} s; "
+            f"{smi}")
+        counts = {k: counts[k] + run[k] for k in WIDE_KERNELS}
+    return counts
 
 
 def gz_head(src: str, dst: str, n: int) -> str:
@@ -2490,7 +2634,7 @@ def main(argv=None) -> int:
         # the pipeline's stage log (index and engine build walls) for
         # drive(); set before the first event (the kernel build's) opens it
         os.environ["NIMBLE_TPU_RUNLOG"] = os.path.join(work, "runlog.jsonl")
-        name, _smi = phase_device()
+        name, smi = phase_device()
         phase_build()
         lib, fq = phase_data(work)
         if argv:
@@ -2509,9 +2653,11 @@ def main(argv=None) -> int:
         mono_counts = phase_mono_main(work, lib, fq, bam, nm1_lib, nm1_fq)
         cmp_lib, cmp_fq = phase_cuda_vs_cpu(work)
         wlib, wfq, wcmp, wr1, wr2 = phase_wide_data(work)
-        bt_err, bt_ms, bt_plain, bt_bound = phase_wide_kernel(wlib, wfq)
+        bt_err, bt_ms, bt_plain, bt_bound, wide_loaded = phase_wide_kernel(wlib, wfq)
         wide_counts = phase_wide_main(work, wlib, wfq, wr1, wr2)
-        compare_devices("20k library, gband", wlib, wcmp)
+        gband_tsv = compare_devices("20k library, gband", wlib, wcmp)
+        layout_counts = phase_gband_layouts(wlib, wfq, wcmp, gband_tsv, wide_loaded, smi)
+        del wide_loaded
         cls_err, cls_bands, (cls_inters, ic_synth_err), cls_counts = phase_cls_paths(work, wlib, wfq, wr1, wr2,
                                                                                      wcmp)
         reports = phase_report(work, pout)
@@ -2528,8 +2674,8 @@ def main(argv=None) -> int:
     # times and bounds at each kernel's main path (intersect_class_bits's at
     # groupcls B's first chunk); launches summed over every path's runs,
     # errors over every check
-    runs = (group_counts, mono_counts, wide_counts, cls_counts, stacked_counts, resume_counts, pipeline_counts,
-            profile_counts, mesh_counts)
+    runs = (group_counts, mono_counts, wide_counts, layout_counts, cls_counts, stacked_counts, resume_counts,
+            pipeline_counts, profile_counts, mesh_counts)
     kernels = [
         ("kmer_keys", "nimble_tpu/align/kernels.py:157", sum(c["kmer_keys"] for c in runs),
          max(kk_err, cls_err, st_err, mesh_errs["kmer_keys"]), kk_ms, kk_plain, kk_bound),
@@ -2537,7 +2683,8 @@ def main(argv=None) -> int:
          mono_counts["mono_probe"] + stacked_counts["mono_probe"] + resume_counts["mono_probe"]
          + mesh_counts["mono_probe"], max(mp_err, st_err, mesh_errs["mono_probe"]), mp_ms, mp_plain, mp_bound),
         ("band_tree_expand", "nimble_tpu/align/kernels.py:394",
-         wide_counts["band_tree_expand"] + cls_counts["band_tree_expand"] + resume_counts["band_tree_expand"]
+         wide_counts["band_tree_expand"] + layout_counts["band_tree_expand"] + cls_counts["band_tree_expand"]
+         + resume_counts["band_tree_expand"]
          + mesh_counts["band_tree_expand"], max(bt_err, mesh_errs["band_tree_expand"], *(b[0] for b in cls_bands)),
          bt_ms, bt_plain, bt_bound),
         ("intersect_class_bits", "nimble_tpu/align/engine.py:2392 (XLA while_loop, no pallas_call)",

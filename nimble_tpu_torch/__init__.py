@@ -19,7 +19,8 @@ group probe (g = 6, W <= 8) and on the mono probe (`--probe mono`,
 `num_mismatches` 1-2, `kmer_stride > 1`, 8 < W <= 16, reads shorter than
 k+g-1), with the two-choice inline probe as the mono path's fallback; and
 on wide libraries (W > 16) that can be banded, on the banded group path
-(gband), and the other wide paths (groupcls, monocls, the wide two-choice
+(gband, in each of the reference's four table layouts), and the other
+wide paths (groupcls, monocls, the wide two-choice
 probe); several libraries at once through the stacked engine (one merged
 probe answers every library); on a data x feature mesh of devices
 (`--mesh`) and in worlds of processes, coordinated or not. Four

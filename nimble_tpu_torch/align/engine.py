@@ -6,7 +6,9 @@ Ports every path of nimble_tpu/align/engine.py:_score_mate:
     position (`group_probe`), window masks and coverage scores for both
     orientations, orientation select and the AND intersection;
   * gband (`_score_mate_groupband`, W > 16): the same window stage and
-    probe grid, one packed probe-row gather per position (`gband_probe`),
+    probe grid, one packed probe-row gather per position and bucket
+    (`gband_probe`: one bucket under single-hash placement, two under
+    two-choice, each through a pointer row in the indirect layout),
     masks and scores, the orientation chosen from the masks alone, then the
     selected orientation's band rows gathered, ANDed and expanded to W words
     (`kernels.band_tree_expand`);
@@ -466,20 +468,21 @@ def _select_orientation(bits_f_w, bits_r_w, matched_f, matched_r, score_f, score
     return bits, score, score_f, score_r
 
 
-def _group_keys(codes, lens, kg: int, g: int, n_buckets: int):
+def _group_keys(codes, lens, kg: int, g: int, n_buckets: int, h2: bool = False):
     """The group paths' probe keys: the window stage at k+g-1, then the
     grid probes at 0, g, 2g, ... plus ONE tail probe per read at the
     data-dependent position j* = clamp(len - (k+g-1), 0, PP-1), appended as
     an extra column and extracted with a one-hot masked sum, so every
     window of a clean read is answered. Returns (jstar, [hi, lo, h1,
-    fwd_canon, valid]), each plane (B, Q+1)."""
+    fwd_canon, valid]), each plane (B, Q+1), with the second bucket hash
+    h2 appended when `h2` asks for it (gband under two-choice placement)."""
     PP = codes.shape[1] - kg + 1  # group positions
-    hi_i, lo_i, h1, _h2, fwd_c, _palin, valid = kmer_keys(codes, lens, kg, n_buckets)
+    hi_i, lo_i, h1, h2_i, fwd_c, _palin, valid = kmer_keys(codes, lens, kg, n_buckets)
     jstar = torch.clamp(lens - kg, 0, PP - 1)
     onehot = torch.arange(PP, device=codes.device)[None, :] == jstar[:, None]
     zero = torch.zeros((), dtype=torch.int32, device=codes.device)
     cat = []
-    for a in (hi_i, lo_i, h1, fwd_c, valid):
+    for a in (hi_i, lo_i, h1, fwd_c, valid) + ((h2_i,) if h2 else ()):
         t = torch.where(onehot, a.to(torch.int32), zero).sum(dim=1, keepdim=True)
         cat.append(torch.cat([a[:, ::g], t.to(a.dtype)], dim=1))
     return jstar, cat
@@ -507,18 +510,25 @@ def _score_mate_group(codes, lens, tables, p: AlignParams):
     return _select_orientation(and_f, and_r, mask_f != 0, mask_r != 0, score_f, score_r, p)
 
 
-def gband_probe(hi_c, lo_c, h1_c, valid_c, tables):
-    """engine.py:_score_mate_groupband's probe_bucket + stash sweep on the
-    dense single-hash table: ONE probe-row gather per position selects the
-    matched slot's half-row indices of both orientations (idx_s, idx_d; -1
-    on a miss) and its packed 4 x g-bit window-presence mask word, zeroed
-    where the position is invalid or missed."""
+def _gband_bucket(h, hi_c, lo_c, tables):
+    """engine.py:_score_mate_groupband's probe_bucket: ONE probe-row gather
+    per position (after, in the indirect layout, the 8-lane pointer row
+    gather and its lane select) -> the matched slot's half-row indices of
+    both orientations (idx_s, idx_d; -1 on a miss) and its packed 4 x g-bit
+    window-presence mask word (0 on a miss)."""
     bucket = tables["gband_bucket"]
     S = MONO_SLOTS
     dev = bucket.device
     neg = torch.full((), -1, dtype=torch.int32, device=dev)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
-    row = bucket[h1_c.long()]  # (B, Q+1, 4S or 5S)
+    hh = h.long()
+    if "gband_ptr8" in tables:
+        # a bucket id is below nb2, nonnegative: >> 3 and & 7 split it
+        # exactly into its pointer row and lane; the int32 pointer names
+        # the bucket's packed row (row 0: all empty)
+        ptr = tables["gband_ptr8"][hh >> 3]  # (B, Q+1, 8)
+        hh = ptr.gather(-1, (hh & 7)[..., None])[..., 0].long()
+    row = bucket[hh]  # (B, Q+1, 4S or 5S)
     # empty slots hold the impossible key hi = -1: no occupancy check needed
     match = (row[..., 0:S] == hi_c[..., None]) & (row[..., S : 2 * S] == lo_c[..., None])
     if bucket.shape[1] == 4 * S:
@@ -527,15 +537,28 @@ def gband_probe(hi_c, lo_c, h1_c, valid_c, tables):
         w1 = torch.where(match, row[..., 3 * S : 4 * S], neg).amax(dim=-1)
         idx_s = torch.where(w0 >= 0, w0 & 0x3FFFF, neg)
         idx_d = torch.where(w1 >= 0, w1 & 0x3FFFF, neg)
-        # every field is masked after its shift; misses are zeroed below
+        # every field is masked after its shift
         mword = (((w0 >> 18) & 0x3F) | (((w0 >> 24) & 0x3F) << 8)
                  | (((w1 >> 18) & 0x3F) << 16) | (((w1 >> 24) & 0x3F) << 24))
-        mword = torch.where(w0 >= 0, mword, zero)
-    else:
-        idx_s = torch.where(match, row[..., 2 * S : 3 * S], neg).amax(dim=-1)
-        idx_d = torch.where(match, row[..., 3 * S : 4 * S], neg).amax(dim=-1)
-        # at most one slot matches (keys are unique): sum-select it
-        mword = torch.where(match, row[..., 4 * S : 5 * S], zero).sum(dim=-1).to(torch.int32)
+        return idx_s, idx_d, torch.where(w0 >= 0, mword, zero)
+    idx_s = torch.where(match, row[..., 2 * S : 3 * S], neg).amax(dim=-1)
+    idx_d = torch.where(match, row[..., 3 * S : 4 * S], neg).amax(dim=-1)
+    # at most one slot matches (keys are unique): sum-select it
+    return idx_s, idx_d, torch.where(match, row[..., 4 * S : 5 * S], zero).sum(dim=-1).to(torch.int32)
+
+
+def gband_probe(hi_c, lo_c, h1_c, valid_c, tables, h2_c=None):
+    """engine.py:_score_mate_groupband's bucket probes + stash sweep: the
+    h1 bucket (`_gband_bucket`), under two-choice placement (`gband_two`)
+    the h2 bucket too, combined as the reference combines them (max for
+    the indices, | for the mask word: a key sits in one bucket at most),
+    then the stash. Returns (idx_s, idx_d, mword), the mask word zeroed
+    where the position is invalid or missed."""
+    idx_s, idx_d, mword = _gband_bucket(h1_c, hi_c, lo_c, tables)
+    if "gband_two" in tables:
+        i2s, i2d, m2 = _gband_bucket(h2_c, hi_c, lo_c, tables)
+        idx_s, idx_d, mword = torch.maximum(idx_s, i2s), torch.maximum(idx_d, i2d), mword | m2
+    zero = torch.zeros((), dtype=torch.int32, device=mword.device)
     for s in range(tables["gband_stash_hi"].shape[0]):
         m = (tables["gband_stash_hi"][s] == hi_c) & (tables["gband_stash_lo"][s] == lo_c)
         idx_s = torch.where(m, tables["gband_stash_idx_s"][s], idx_s)
@@ -545,21 +568,27 @@ def gband_probe(hi_c, lo_c, h1_c, valid_c, tables):
     return idx_s, idx_d, torch.where(hit, mword, zero)
 
 
-def _score_mate_groupband(codes, lens, tables, p: AlignParams):
-    """engine.py:_score_mate_groupband — the wide (W > 16) group path with
-    banded pre-ANDed payloads: the same probe grid + tail and mask/score
-    semantics as the narrow group path, but each probe position resolves to
-    the index of a page-banded 2-page half row already holding the AND of
-    its g windows' classes for one orientation. use_fwd is decided from the
-    probe masks alone, so only the selected orientation's half rows are
-    gathered, ANDed and expanded to W words (`kernels.band_tree_expand`)."""
+def gband_keys(codes, lens, tables, p: AlignParams):
+    """The window stage of the gband path: `_group_keys` at k+g-1, hashed
+    into nb2 buckets (the dense table's rows, or eight per pointer row of
+    the indirect one), with h2 under two-choice placement."""
+    nb = (tables["gband_ptr8"].shape[0] * 8 if "gband_ptr8" in tables
+          else tables["gband_bucket"].shape[0])
+    return _group_keys(codes, lens, p.k + p.group_g - 1, p.group_g, nb, h2="gband_two" in tables)
+
+
+def gband_select(keys, lens, L: int, tables, p: AlignParams):
+    """The probe stage of the gband path, from gband_keys' output: the
+    probe (`gband_probe`), window masks and coverage scores of both
+    orientations, the orientation (from the masks alone), and the selected
+    orientation's half row per position: s when the canonical orientation
+    agrees with the read's selected one, else d. Returns (idx_sel, has_sel,
+    score, score_f, score_r)."""
     g = p.group_g
-    B, L = codes.shape
     P = L - p.k + 1
-    jstar, (hi_c, lo_c, h1_c, fwd_cc, valid_c) = _group_keys(
-        codes, lens, p.k + g - 1, g, tables["gband_bucket"].shape[0])
+    jstar, (hi_c, lo_c, h1_c, fwd_cc, valid_c, *h2_c) = keys
     Q = hi_c.shape[1] - 1
-    idx_s, idx_d, mword = gband_probe(hi_c, lo_c, h1_c, valid_c, tables)
+    idx_s, idx_d, mword = gband_probe(hi_c, lo_c, h1_c, valid_c, tables, *h2_c)
 
     gmask = (1 << g) - 1
     # `>>` is arithmetic on int32: the & gmask keeps only the g-bit field
@@ -571,13 +600,29 @@ def _score_mate_groupband(codes, lens, tables, p: AlignParams):
         lens, p.k, L, 1,
     )
     use_fwd = _use_fwd(score_f, score_r, p)
-    # the selected orientation's half row per position: s when the
-    # canonical orientation agrees with the read's selected one, else d
     u = use_fwd[:, None]
     idx_sel = torch.where(fwd_cc == u, idx_s, idx_d)
     has_sel = torch.where(u, mask_f, mask_r) != 0
-    bits = band_tree_expand(tables["gband_page"], tables["gband_band"], idx_sel, has_sel, table_words(tables))
-    return bits, torch.where(use_fwd, score_f, score_r), score_f, score_r
+    return idx_sel, has_sel, torch.where(use_fwd, score_f, score_r), score_f, score_r
+
+
+def gband_expand(idx_sel, has_sel, tables) -> torch.Tensor:
+    """The intersection stage of the gband path: the selected half rows
+    gathered, ANDed and expanded to W words (`kernels.band_tree_expand`)."""
+    return band_tree_expand(tables["gband_page"], tables["gband_band"], idx_sel, has_sel, table_words(tables))
+
+
+def _score_mate_groupband(codes, lens, tables, p: AlignParams):
+    """engine.py:_score_mate_groupband — the wide (W > 16) group path with
+    banded pre-ANDed payloads: the same probe grid + tail and mask/score
+    semantics as the narrow group path, but each probe position resolves to
+    the index of a page-banded 2-page half row already holding the AND of
+    its g windows' classes for one orientation. use_fwd is decided from the
+    probe masks alone, so only the selected orientation's half rows are
+    gathered, ANDed and expanded to W words: gband_keys, gband_select,
+    gband_expand."""
+    idx_sel, has_sel, *scores = gband_select(gband_keys(codes, lens, tables, p), lens, codes.shape[1], tables, p)
+    return (gband_expand(idx_sel, has_sel, tables), *scores)
 
 
 def groupcls_probe(hi_i, lo_i, h1, fwd_c, valid, tables, g: int):
@@ -1194,7 +1239,11 @@ class AlignEngine(ChunkDispatch):
     def _step(self, tables, *args):
         """One shard's rows through align_step on `tables` and this engine's
         wire -> (flat tensor, wire tag)."""
-        out = align_step(tables, self.params, *args)
+        return self.pack(align_step(tables, self.params, *args))
+
+    def pack(self, out):
+        """align_step's outputs on this engine's wire -> (flat tensor, wire
+        tag)."""
         if self.wire == "full":
             return pack_outputs(out), self.wire
         rows = compress_band_rows(out["bits"], self.band_pw)

@@ -36,11 +36,14 @@ with its stash shipped as one (n_stash, 2 + 2W) matrix of
   [hi | lo | vs_bits (W) | vd_bits (W)] rows (`mono_stash`).
 Two-choice inline bucket row layout (S = BUCKET_SLOTS slots):
   [hi x S | lo x S | vsame x S | vdiff x S | vs_bits (S, W) | vd_bits (S, W)]
-Gband (wide, W > 16) tables, single-hash and dense:
-  gband_bucket probe rows [hi x S | lo x S | w0 x S | w1 x S] (packed: w0 =
-  idx_s | vs<<18 | vd<<24, w1 = idx_d | rvs<<18 | rvd<<24) or, with 2^18 or
-  more band rows or g > 6, [hi x S | lo x S | idx_s x S | idx_d x S |
-  mask x S]; gband_table half rows [page | band (2 Pw)], one per distinct
+Gband (wide, W > 16) tables, in the reference's four layouts (gband_mode:
+single-hash or two-choice placement, dense or indirect rows):
+  gband_bucket probe rows, one per bucket (dense) or one per occupied
+  bucket after an all-empty row 0 (indirect, reached through the
+  (nb2 / 8, 8) pointer rows gband_ptr8): [hi x S | lo x S | w0 x S |
+  w1 x S] (packed: w0 = idx_s | vs<<18 | vd<<24, w1 = idx_d | rvs<<18 |
+  rvd<<24) or, with 2^18 or more band rows or g > 6, [hi x S | lo x S |
+  idx_s x S | idx_d x S | mask x S]; gband_table half rows [page | band (2 Pw)], one per distinct
   pre-ANDed (k+g-1)-mer payload and orientation; the stash as five planes.
   The table is shipped re-laid (`relayout_gband`, the band_tree_expand
   kernel's): a page vector `gband_page` (n_rows,) and the band rows
@@ -57,7 +60,7 @@ from __future__ import annotations
 import os
 import time
 import zipfile
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -111,6 +114,9 @@ BAND_OUTLIER_CAP = 64
 GBAND_PREAND_BLOCK_BYTES = 128 << 20
 # the persisted sidecar's layout version, shared with the reference
 GBAND_FORMAT_VERSION = 3
+# a gband layout: (two-choice placement, indirect rows), and all four
+GbandMode = Tuple[bool, bool]
+GBAND_MODES = ((False, False), (True, False), (False, True), (True, True))
 GBAND_KEYS = (
     "gband_bucket",
     "gband_table",
@@ -615,29 +621,93 @@ def _fix_outlier_entries(index: KmerIndex, cols, po, bo, band_ok, Pw: int):
     return po, bo, True
 
 
-def build_groupband_tables(index: KmerIndex) -> Optional[Dict[str, np.ndarray]]:
-    """engine.py:_build_groupband_tables in its default layout (single-hash
-    placement, dense bucket) as numpy arrays, under the reference's keys
-    (with its `gband_single` and `gband_packedrow` markers, so a sidecar
-    written from them loads in either package). None when the index has no
-    group entries or g > 8, banding is infeasible, an outlier entry stays
-    wide, or placement blows its budget."""
-    if not index.has_pairs or index.pair_g > 8:
-        return None
-    bands = build_class_bands_robust(index)
-    if bands is None:
-        return None
+def gband_mode() -> GbandMode:
+    """The gband layout the environment asks for, read at each build as the
+    reference reads it: (two_choice, indirect). NIMBLE_TPU_GBAND_PLACEMENT=two
+    places the entries by two-choice placement (a ~16x denser table, probed
+    in two buckets); NIMBLE_TPU_GBAND_INDIRECT=1 stores only the occupied
+    buckets, as rows reached through an 8-lane pointer array."""
+    return (os.environ.get("NIMBLE_TPU_GBAND_PLACEMENT", "single") == "two",
+            os.environ.get("NIMBLE_TPU_GBAND_INDIRECT", "0") == "1")
+
+
+def _two_choice_placement(hi: np.ndarray, lo: np.ndarray, slots: int, stash_cap: int = 64):
+    """engine.py:_two_choice_placement — greedy lesser-loaded rounds, then
+    random-walk cuckoo eviction (the reference's seed), into next_pow2
+    bucket tables grown until the overflow fits stash_cap. Returns None or
+    (nb2, bucket_ids, slot_ids, placed_keys, stash_keys)."""
+    n = hi.shape[0]
+    target = max(1, int(np.ceil(n / (slots * 0.6))))
+    nb2 = 1 << max(1, int(np.ceil(np.log2(target))))
+    for _ in range(4):
+        h1, h2 = bucket_hashes_np(hi, lo, nb2)
+        slot_key = np.full(nb2 * slots, -1, dtype=np.int64)
+        loads = np.zeros(nb2, dtype=np.int32)
+        pending = np.arange(n)
+        for _r in range(16):
+            if pending.size == 0:
+                break
+            p1, p2 = h1[pending], h2[pending]
+            tgt = np.where(loads[p1] <= loads[p2], p1, p2).astype(np.int64)
+            order = np.argsort(tgt, kind="stable")
+            t_sorted = tgt[order]
+            boundary = np.empty(t_sorted.shape[0], dtype=bool)
+            boundary[0] = True
+            boundary[1:] = t_sorted[1:] != t_sorted[:-1]
+            group_start = np.flatnonzero(boundary)
+            rank = np.arange(t_sorted.shape[0]) - group_start[np.cumsum(boundary) - 1]
+            slot = loads[t_sorted] + rank
+            ok = slot < slots
+            slot_key[t_sorted[ok] * slots + slot[ok]] = pending[order[ok]]
+            np.add.at(loads, t_sorted[ok], 1)
+            pending = pending[order[~ok]]
+        rng = np.random.default_rng(0x1C0FFEE)
+        for _r in range(512):
+            if pending.size <= stash_cap:
+                break
+            p1, p2 = h1[pending], h2[pending]
+            pick = rng.integers(0, 2, size=pending.size) == 1
+            tgt = np.where(pick, p1, p2).astype(np.int64)
+            order = np.argsort(tgt, kind="stable")
+            t_sorted = tgt[order]
+            first = np.empty(t_sorted.size, dtype=bool)
+            first[0] = True
+            first[1:] = t_sorted[1:] != t_sorted[:-1]
+            win = order[first]  # one winner per bucket this round
+            flat = tgt[win] * slots + rng.integers(0, slots, size=win.size)
+            evicted = slot_key[flat]
+            slot_key[flat] = pending[win]
+            keep = np.ones(pending.size, dtype=bool)
+            keep[win] = False
+            pending = np.concatenate([pending[keep], evicted[evicted >= 0]])
+        if pending.size <= stash_cap:
+            occ = np.flatnonzero(slot_key >= 0)
+            return nb2, occ // slots, occ % slots, slot_key[occ], pending
+        nb2 <<= 1
+    return None
+
+
+def _gband_placement(index: KmerIndex, two_choice: bool):
+    """The gband entries' placement: two-choice (no byte cap), else
+    single-hash under MONO_MAX_BYTES."""
+    if two_choice:
+        return _two_choice_placement(index.pair_hi, index.pair_lo, MONO_SLOTS)
+    return _single_hash_placement(index.pair_hi, index.pair_lo, 4, MONO_SLOTS)
+
+
+def gband_payload(index: KmerIndex, bands):
+    """The layout-independent part of engine.py:_build_groupband_tables:
+    the g windows' class bands of every entry pre-ANDed per orientation,
+    the entries touching an outlier class fixed at full width, the packed
+    4 x g-bit presence mask word, and the half rows [page | band]
+    deduplicated (a column-mixing int64 hash, verified row for row, with an
+    exact lexsort unique on a collision). Returns (band_table, remap_s,
+    remap_d, mask_word), the last three per entry in the index's order, or
+    None when an outlier entry stays wide."""
     Pw, bandrow, band_ok = bands
     g = index.pair_g
-    hi = index.pair_hi
-    lo = index.pair_lo
     vals = index.pair_vals
-    n = hi.shape[0]
-    placement = _single_hash_placement(hi, lo, 4, MONO_SLOTS)
-    if placement is None:
-        return None
-    nb2, b, s, keys, skeys = placement
-
+    n = vals.shape[0]
     pages_all = bandrow[:, 0]
     band_all = bandrow[:, 1:]
     p_s, b_s, vs_mask = _preand_bands(vals[:, :g], pages_all, band_all, Pw)
@@ -649,9 +719,6 @@ def build_groupband_tables(index: KmerIndex) -> Optional[Dict[str, np.ndarray]]:
             return None
     rev = lambda m: sum(((m >> i) & 1) << (g - 1 - i) for i in range(g))
     mask_word = vs_mask | (vd_mask << 8) | (rev(vs_mask) << 16) | (rev(vd_mask) << 24)
-    # half rows [page | band], one per entry and orientation, deduplicated:
-    # a column-mixing int64 hash, verified row for row, with an exact
-    # lexsort unique on a collision
     half = np.concatenate(
         [np.concatenate([p_s[:, None], b_s], axis=1),
          np.concatenate([p_d[:, None], b_d], axis=1)]
@@ -668,8 +735,83 @@ def build_groupband_tables(index: KmerIndex) -> Optional[Dict[str, np.ndarray]]:
     else:
         band_table, remap = np.unique(half, axis=0, return_inverse=True)
         remap = remap.reshape(-1).astype(np.int32)
-    remap_s, remap_d = remap[:n], remap[n:]
+    return band_table, remap[:n], remap[n:], mask_word
 
+
+def _entry_key(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
+    """(hi, lo) int32 or uint32 words -> one uint64 key each."""
+    return (hi.view(np.uint32).astype(np.uint64) << np.uint64(32)) | lo.view(np.uint32).astype(np.uint64)
+
+
+def gband_payload_of(tables, index: KmerIndex):
+    """gband_payload read back from the gband arrays of another layout of
+    the same index, so that a new layout costs only its placement: every
+    entry's key sits in one occupied bucket slot (any row: the dense
+    layout's or the indirect one's packed rows) or one stash row; a packed
+    row's 6-bit fields hold all of its mask word (packed rows need g <= 6);
+    the keys map back to the index's entry order through pair_hi / pair_lo;
+    and band_table's order comes from the dedup hash, not from the layout,
+    so it is taken as it is. None unless the arrays hold each entry exactly
+    once."""
+    S = MONO_SLOTS
+    bucket = tables["gband_bucket"]
+    # the occupied rows, gathered once (a sparse table is mostly empty):
+    # an empty slot's hi is the EMPTY sentinel -1 and a canonical hi is
+    # >= 0, so a row is occupied where the AND of its hi words is >= 0
+    hi_and = bucket[:, 0].copy()
+    for j in range(1, S):
+        hi_and &= bucket[:, j]
+    bucket = bucket[np.flatnonzero(hi_and >= 0)]
+    occ = bucket[:, :S] != -1
+    socc = tables["gband_stash_hi"] != -1
+    keys = np.concatenate([_entry_key(bucket[:, :S][occ], bucket[:, S : 2 * S][occ]),
+                           _entry_key(tables["gband_stash_hi"][socc], tables["gband_stash_lo"][socc])])
+    if "gband_packedrow" in tables:
+        # w0 = idx_s | vs<<18 | vd<<24, w1 = idx_d | rvs<<18 | rvd<<24
+        w0, w1 = bucket[:, 2 * S : 3 * S][occ], bucket[:, 3 * S : 4 * S][occ]
+        idx_s, idx_d = w0 & 0x3FFFF, w1 & 0x3FFFF
+        mword = (((w0 >> 18) & 0x3F) | (((w0 >> 24) & 0x3F) << 8)
+                 | (((w1 >> 18) & 0x3F) << 16) | (((w1 >> 24) & 0x3F) << 24))
+    else:
+        idx_s, idx_d, mword = (bucket[:, i * S : (i + 1) * S][occ] for i in (2, 3, 4))
+    idx_s = np.concatenate([idx_s, tables["gband_stash_idx_s"][socc]])
+    idx_d = np.concatenate([idx_d, tables["gband_stash_idx_d"][socc]])
+    mword = np.concatenate([mword, tables["gband_stash_mask"][socc]])
+    want = _entry_key(index.pair_hi, index.pair_lo)
+    n = want.shape[0]
+    if keys.shape[0] != n or n == 0:
+        return None
+    order = np.argsort(keys)
+    at = order[np.minimum(np.searchsorted(keys, want, sorter=order), n - 1)]
+    if not np.array_equal(keys[at], want) or np.unique(at).shape[0] != n:
+        return None
+    as_i32 = lambda a: a[at].astype(np.int32)
+    return np.asarray(tables["gband_table"]), as_i32(idx_s), as_i32(idx_d), as_i32(mword)
+
+
+def gband_layout(index: KmerIndex, payload, placement, mode: GbandMode) -> Dict[str, np.ndarray]:
+    """The layout part of engine.py:_build_groupband_tables: the placed
+    entries' probe rows (packed [hi | lo | w0 | w1] rows when the band rows
+    fit 18 bits and g <= 6, else the 5-plane rows), dense (one row per
+    bucket) or indirect (the occupied buckets' rows after an all-empty row
+    0, and the (nb2 / 8, 8) pointer rows `gband_ptr8`), the stash as five
+    planes, and the reference's markers: `gband_single` for single-hash
+    placement, `gband_packedrow` for packed rows. The keys in the
+    reference's order, so that a sidecar written from them has its
+    members in the same order."""
+    two_choice, indirect = mode
+    band_table, remap_s, remap_d, mask_word = payload
+    nb2, b, s, keys, skeys = placement
+    hi, lo, g = index.pair_hi, index.pair_lo, index.pair_g
+    if indirect:
+        occ_buckets = np.unique(b)
+        n_rows = occ_buckets.shape[0] + 1
+        ptr = np.zeros(nb2, dtype=np.int32)  # empty buckets -> row 0
+        ptr[occ_buckets] = np.arange(1, n_rows, dtype=np.int32)
+        rb = ptr[b]
+        ptr8 = ptr.reshape(-1, 8)
+    else:
+        n_rows, rb, ptr8 = nb2, b, None
     S = MONO_SLOTS
     packed_rows = band_table.shape[0] < (1 << 18) and g <= 6
     if packed_rows:
@@ -678,12 +820,12 @@ def build_groupband_tables(index: KmerIndex) -> Optional[Dict[str, np.ndarray]]:
         planes = (w0, w1)
     else:
         planes = (remap_s, remap_d, mask_word)
-    table = np.zeros((nb2, S * (2 + len(planes))), dtype=np.int32)
+    table = np.zeros((n_rows, S * (2 + len(planes))), dtype=np.int32)
     table[:, 0:S] = -1  # EMPTY key sentinel in the hi plane
-    table[b, s] = hi[keys].view(np.int32)
-    table[b, S + s] = lo[keys].view(np.int32)
+    table[rb, s] = hi[keys].view(np.int32)
+    table[rb, S + s] = lo[keys].view(np.int32)
     for i, plane in enumerate(planes):
-        table[b, (2 + i) * S + s] = plane[keys]
+        table[rb, (2 + i) * S + s] = plane[keys]
 
     n_stash = skeys.shape[0]
     pad = max(1, n_stash)
@@ -700,22 +842,48 @@ def build_groupband_tables(index: KmerIndex) -> Optional[Dict[str, np.ndarray]]:
         gs["idx_s"][:n_stash] = remap_s[skeys]
         gs["idx_d"][:n_stash] = remap_d[skeys]
         gs["mask"][:n_stash] = mask_word[skeys]
-    out = {
-        "gband_bucket": table,
-        "gband_table": band_table,
-        **{f"gband_stash_{k}": v for k, v in gs.items()},
-        "gband_single": np.zeros((1,), np.int32),
-    }
+    out = {"gband_bucket": table}
+    if ptr8 is not None:
+        out["gband_ptr8"] = ptr8
+    out["gband_table"] = band_table
+    out.update({f"gband_stash_{k}": v for k, v in gs.items()})
+    if not two_choice:
+        out["gband_single"] = np.zeros((1,), np.int32)
     if packed_rows:
         out["gband_packedrow"] = np.zeros((1,), np.int32)
     return out
 
 
-def gband_sidecar_path(index: KmerIndex) -> Optional[str]:
-    """The reference's sidecar of the default gband layout, next to the
-    persisted index (None for an index that was never saved or loaded)."""
+def build_groupband_tables(index: KmerIndex, mode: Optional[GbandMode] = None) -> Optional[Dict[str, np.ndarray]]:
+    """engine.py:_build_groupband_tables from scratch, in the layout `mode`
+    ((two_choice, indirect); default the environment's, gband_mode), as
+    numpy arrays under the reference's keys (gband_layout). None when the
+    index has no group entries or g > 8, banding is infeasible, placement
+    blows its budget, or an outlier entry stays wide."""
+    if not index.has_pairs or index.pair_g > 8:
+        return None
+    mode = gband_mode() if mode is None else mode
+    bands = build_class_bands_robust(index)
+    if bands is None:
+        return None
+    placement = _gband_placement(index, mode[0])
+    if placement is None:
+        return None
+    payload = gband_payload(index, bands)
+    if payload is None:
+        return None
+    return gband_layout(index, payload, placement, mode)
+
+
+def gband_sidecar_path(index: KmerIndex, mode: Optional[GbandMode] = None) -> Optional[str]:
+    """The reference's sidecar of a gband layout (default the environment's),
+    next to the persisted index: `<index>.gband.{single|two}[.dense].npz`
+    (None for an index that was never saved or loaded)."""
     cp = getattr(index, "_cache_path", None)
-    return f"{cp}.gband.single.dense.npz" if cp else None
+    if not cp:
+        return None
+    two_choice, indirect = gband_mode() if mode is None else mode
+    return f"{cp}.gband.{'two' if two_choice else 'single'}{'' if indirect else '.dense'}.npz"
 
 
 def gband_fingerprint(index: KmerIndex) -> np.ndarray:
@@ -736,31 +904,68 @@ def gband_fingerprint(index: KmerIndex) -> np.ndarray:
     )
 
 
+def load_gband_sidecar(path: Optional[str], index: KmerIndex) -> Optional[Dict[str, np.ndarray]]:
+    """A sidecar's arrays, None when it is absent, unreadable or stale."""
+    if not path or not os.path.exists(path):
+        return None
+    try:
+        with np.load(path) as z:
+            if np.array_equal(z["__fp"], gband_fingerprint(index)):
+                return {k: z[k] for k in z.files if k != "__fp"}
+    except (OSError, EOFError, KeyError, ValueError, zipfile.BadZipFile):
+        pass
+    return None
+
+
+def _derived_payload(index: KmerIndex, mode: GbandMode):
+    """The payload of another layout's tables of this index, taken from the
+    index object's cache, else from a fresh sidecar on disk: (payload,
+    where it came from), or (None, None)."""
+    cache = index.__dict__.get("_torch_gband", {})
+    others = [m for m in GBAND_MODES if m != mode]
+    held = [m for m in others if cache.get(m) is not None]
+    for other in sorted(held, key=lambda m: cache[m]["gband_bucket"].size):  # the smallest first
+        payload = gband_payload_of(cache[other], index)
+        if payload is not None:
+            return payload, "memory"
+    for other in others:
+        path = gband_sidecar_path(index, other)
+        tables = load_gband_sidecar(path, index)
+        payload = None if tables is None else gband_payload_of(tables, index)
+        if payload is not None:
+            return payload, path
+    return None, None
+
+
 def groupband_tables(index: KmerIndex) -> Optional[Dict[str, np.ndarray]]:
-    """build_groupband_tables, read from and written to the sidecar that
-    the reference reads and writes (same file, fingerprint and keys), and
-    kept on the index object for later engines of the same process. An
-    unreadable or stale sidecar is rebuilt; writing it is best-effort.
-    Whether the tables were loaded or built, and in how many seconds, is
-    kept as `index.gband_sidecar` and is the run log's `gband_sidecar`
-    event."""
-    cached = getattr(index, "_torch_gband", "unset")
-    if cached != "unset":
-        return cached
+    """The gband tables of the layout the environment asks for (gband_mode),
+    read from and written to the sidecar that the reference reads and
+    writes for it (same file, fingerprint, keys and member order), and kept
+    per layout on the index object for later engines of the same process,
+    as the reference's `_gband_cache`. An unreadable or stale sidecar is
+    rebuilt; writing it is best-effort. Where another layout's tables of
+    the index are at hand (in memory or in a fresh sidecar), only the
+    placement runs: their payload is read back (gband_payload_of) and laid
+    out anew, which gives the from-scratch build's arrays. Where the tables
+    came from ("loaded", "derived" with `derived_from`, or "built"), and in
+    how many seconds, is kept as `index.gband_sidecar` and is the run log's
+    `gband_sidecar` event."""
+    mode = gband_mode()
+    cache = index.__dict__.setdefault("_torch_gband", {})
+    if mode in cache:
+        return cache[mode]
     t0 = time.perf_counter()
-    disk = gband_sidecar_path(index) if index.has_pairs else None
-    out = None
-    if disk and os.path.exists(disk):
-        try:
-            with np.load(disk) as z:
-                if np.array_equal(z["__fp"], gband_fingerprint(index)):
-                    out = {k: z[k] for k in z.files if k != "__fp"}
-        except (OSError, EOFError, KeyError, ValueError, zipfile.BadZipFile):
-            out = None  # unreadable: rebuild below
-    source, written = "loaded", False
-    if out is None:
-        source = "built"
-        out = build_groupband_tables(index)
+    disk = gband_sidecar_path(index, mode) if index.has_pairs else None
+    out = load_gband_sidecar(disk, index)
+    source, written, origin = "loaded", False, None
+    if out is None and index.has_pairs and index.pair_g <= 8:
+        payload, origin = _derived_payload(index, mode)
+        if payload is None:
+            source, out = "built", build_groupband_tables(index, mode)
+        else:
+            placement = _gband_placement(index, mode[0])
+            source = "derived"
+            out = None if placement is None else gband_layout(index, payload, placement, mode)
         if out is not None and disk:
             try:
                 tmp = f"{disk}.{os.getpid()}.tmp.npz"
@@ -772,8 +977,10 @@ def groupband_tables(index: KmerIndex) -> Optional[Dict[str, np.ndarray]]:
     if out is not None:
         index.gband_sidecar = {"path": disk, "source": source, "written": written,
                                "wall_s": round(time.perf_counter() - t0, 4)}
+        if origin is not None:
+            index.gband_sidecar["derived_from"] = origin
         runlog().event("gband_sidecar", **index.gband_sidecar)
-    index._torch_gband = out
+    cache[mode] = out
     return out
 
 
@@ -797,22 +1004,21 @@ def _as_tensor(a, device) -> torch.Tensor:
 
 
 def _gband_to_device(np_tables, W: int, device) -> Dict[str, torch.Tensor]:
-    """The gband arrays the step reads, as tensors, plus W as a plain int.
-    Only the default layout is taken: the reference's two-choice and
-    indirect layouts (NIMBLE_TPU_GBAND_PLACEMENT=two,
-    NIMBLE_TPU_GBAND_INDIRECT=1) are not ported, and no ROADMAP item
-    queues them."""
-    if "gband_single" not in np_tables or "gband_ptr8" in np_tables:
-        raise NotImplementedError(
-            "only the single-hash dense gband layout is ported; the reference's two-choice "
-            "(NIMBLE_TPU_GBAND_PLACEMENT=two) and indirect (NIMBLE_TPU_GBAND_INDIRECT=1) "
-            "layouts are not")
+    """The gband arrays the step reads, as tensors, plus W as a plain int:
+    the probe rows, the stash planes, the band table re-laid
+    (relayout_gband), the pointer rows `gband_ptr8` of the indirect layout,
+    and, where the reference's `gband_single` marker is absent (two-choice
+    placement), the marker `gband_two` (True) that sends each probe to its
+    second bucket too."""
     width = np_tables["gband_bucket"].shape[1]
     if width != MONO_SLOTS * (4 if "gband_packedrow" in np_tables else 5):
         raise ValueError(f"gband bucket rows of {width} words do not match the packed-row marker")
-    out = {k: _as_tensor(np_tables[k], device) for k in GBAND_KEYS if k != "gband_table"}
+    keys = [k for k in GBAND_KEYS if k != "gband_table"] + ["gband_ptr8"] * ("gband_ptr8" in np_tables)
+    out = {k: _as_tensor(np_tables[k], device) for k in keys}
     out["gband_page"], out["gband_band"] = _relay_bands(
         _as_tensor(np_tables["gband_table"], device), "gband_relayout")
+    if "gband_single" not in np_tables:
+        out["gband_two"] = True
     return {**out, "gband_words": int(W)}
 
 

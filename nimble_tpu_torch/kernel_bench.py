@@ -472,6 +472,25 @@ def class_stages(eng, codes, lens):
     ]
 
 
+def gband_stages(eng, codes, lens):
+    """One single-end step of a gband engine on these reads, cut into its
+    stages as class_stages cuts a class-id step: the window stage
+    (`gband_keys`, the kmer_keys kernel at k+g-1, h2 too under two-choice
+    placement), the probe (`gband_select`: the bucket probes, through the
+    pointer rows in the indirect layout, the stash, masks, coverage and the
+    orientation), `band_tree_expand` (`gband_expand`) and `combine_mates` +
+    the engine's wire (`AlignEngine.pack`)."""
+    from nimble_tpu_torch.align import engine as TE
+
+    t, p, L = eng.tables, eng.params, codes.shape[1]
+    return [
+        ("window", lambda _: TE.gband_keys(codes, lens, t, p)),
+        ("probe", lambda keys: TE.gband_select(keys, lens, L, t, p)),
+        ("band_tree_expand", lambda sel: (TE.gband_expand(sel[0], sel[1], t), *sel[2:])),
+        ("combine + pack", lambda mate: eng.pack(TE.combine_mates(p, lens, mate))[0]),
+    ]
+
+
 def stacked_stages(eng, codes, lens):
     """One single-end step of a stacked engine on these reads, cut into its
     stages as class_stages cuts a class-id step: the window stage (the
