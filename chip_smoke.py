@@ -2312,15 +2312,25 @@ def phase_pipeline(work: str, lib: str, pairs, bam_p5: str, pout: str):
 def phase_profile(work: str, lib: str, fq: str):
     """Phase 22: one in-process align of phase 8's reads under
     NIMBLE_TPU_PROFILE; the trace must name the kmer_keys kernel (the
-    symbol csrc/kmer_keys.cu launches) and the TSV equal the unprofiled
+    symbol csrc/kmer_keys.cu launches), hold the feeder's and the emission
+    thread's spans and the engine's stage ranges with the kmer_keys kernel
+    under `engine.keys` (trace_summary), with the run log's stage stamps
+    within 1 ms of their ranges, and the TSV must equal the unprofiled
     run's. Returns the launch counts of both runs."""
+    from nimble_tpu_torch import trace_summary
+
     d = os.path.join(work, "p22")
     trace_dir = os.path.join(d, "trace")
     os.makedirs(d)
     outs = {k: os.path.join(d, f"{k}.tsv") for k in ("profiled", "plain")}
+    log = os.environ["NIMBLE_TPU_RUNLOG"]
+    seen = os.path.getsize(log)
     with environ({"NIMBLE_TPU_PROFILE": trace_dir}):
         wall_p, _, c1 = drive("(22) profiled group reads", ["--reference", lib, "--output", outs["profiled"],
                                                             "--input", fq], N_CMP_READS, ["kmer_keys"], path="group")
+    with open(log, "rb") as f:  # the profiled run's events alone
+        f.seek(seen)
+        profiled = [json.loads(ln) for ln in f.read(os.path.getsize(log) - seen).splitlines() if ln.strip()]
     wall, _, c2 = drive("(22) the same, unprofiled", ["--reference", lib, "--output", outs["plain"], "--input", fq],
                         N_CMP_READS, ["kmer_keys"], path="group")
     rows = same_file("(22) the profiled TSV", outs["profiled"], outs["plain"])
@@ -2328,11 +2338,26 @@ def phase_profile(work: str, lib: str, fq: str):
     if len(traces) != 1:
         raise AssertionError(f"(22) the trace directory holds {traces}, not one trace")
     with open(traces[0]) as f:
-        events = json.load(f)["traceEvents"]
+        trace = json.load(f)
+    events = trace["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     kk = [e for e in kernels if "kmer_keys_kernel" in e.get("name", "")]
     if not kk:
         raise AssertionError(f"(22) the trace names no kmer_keys_kernel among its {len(kernels)} kernels")
+    summary = trace_summary.summarize(trace, profiled)
+    spans = {name: set(table) for name, table in summary["threads"].items()}
+    if not ({"pipeline.pack"} <= spans.get("nimble-feed", set())
+            and {"engine.collect", "pipeline.emit"} <= spans.get("nimble-emit", set())):
+        raise AssertionError(f"(22) the trace lacks the feeder's or the emission thread's spans: {spans}")
+    stages = ("engine.keys", "engine.probe", "engine.score", "engine.select", "engine.combine", "engine.pack")
+    if not all(summary["device_s"].get(s, 0) > 0 for s in stages):
+        raise AssertionError(f"(22) a stage range holds no device time: {summary['device_s']}")
+    late = [s for s in summary["stamps"] if abs(s["us"]) > 1000]
+    if late or not summary["stamps"]:
+        raise AssertionError(f"(22) the run log's stage stamps are off their ranges: {summary['stamps']}")
+    say("profile", "(22) device s by stage range: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in summary["device_s"].items()) + "; stamps within "
+        f"{max(abs(s['us']) for s in summary['stamps']):.0f} us")
     say("profile", f"(22) {os.path.basename(traces[0])}, {os.path.getsize(traces[0]) / 1e6:.1f} MB: "
         f"{len(kernels)} kernel records, {len(kk)} of them {kk[0]['name'][:60]!r} "
         f"({sum(e['dur'] for e in kk) / 1e3:.4f} ms on the card); TSV == the unprofiled run's ({rows} rows); "

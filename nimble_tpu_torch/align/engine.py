@@ -63,6 +63,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from nimble_tpu_torch import observability as obs
 from nimble_tpu_torch.config import Config
 from nimble_tpu_torch.index.builder import BUCKET_SLOTS, STASH_SIZE, KmerIndex
 from nimble_tpu_torch.align.kernels import (
@@ -495,19 +496,23 @@ def _score_mate_group(codes, lens, tables, p: AlignParams):
     g = p.group_g
     B, L = codes.shape
     P = L - p.k + 1  # k-windows
-    jstar, cat = _group_keys(codes, lens, p.k + g - 1, g, tables["group_bucket"].shape[0])
+    with obs.span("engine.keys"):
+        jstar, cat = _group_keys(codes, lens, p.k + g - 1, g, tables["group_bucket"].shape[0])
     W = table_words(tables)
-    and_f, mask_f, and_r, mask_r = group_probe(*cat, tables, W, g)
+    with obs.span("engine.probe"):
+        and_f, mask_f, and_r, mask_r = group_probe(*cat, tables, W, g)
     Q = cat[0].shape[1] - 1
 
-    score_f, score_r = coverage_score2(
-        group_win_matched(mask_f, Q, g, P, jstar),
-        group_win_matched(mask_r, Q, g, P, jstar),
-        lens, p.k, L, 1,
-    )
+    with obs.span("engine.score"):
+        score_f, score_r = coverage_score2(
+            group_win_matched(mask_f, Q, g, P, jstar),
+            group_win_matched(mask_r, Q, g, P, jstar),
+            lens, p.k, L, 1,
+        )
     # the AND is order-independent and each probe's windows are pre-ANDed:
     # the (B, Q+1, W) probe planes feed the intersection directly
-    return _select_orientation(and_f, and_r, mask_f != 0, mask_r != 0, score_f, score_r, p)
+    with obs.span("engine.select"):
+        return _select_orientation(and_f, and_r, mask_f != 0, mask_r != 0, score_f, score_r, p)
 
 
 def _gband_bucket(h, hi_c, lo_c, tables):
@@ -588,22 +593,25 @@ def gband_select(keys, lens, L: int, tables, p: AlignParams):
     P = L - p.k + 1
     jstar, (hi_c, lo_c, h1_c, fwd_cc, valid_c, *h2_c) = keys
     Q = hi_c.shape[1] - 1
-    idx_s, idx_d, mword = gband_probe(hi_c, lo_c, h1_c, valid_c, tables, *h2_c)
+    with obs.span("engine.probe"):
+        idx_s, idx_d, mword = gband_probe(hi_c, lo_c, h1_c, valid_c, tables, *h2_c)
 
-    gmask = (1 << g) - 1
-    # `>>` is arithmetic on int32: the & gmask keeps only the g-bit field
-    mask_f = torch.where(fwd_cc, mword, mword >> 8) & gmask
-    mask_r = torch.where(fwd_cc, mword >> 24, mword >> 16) & gmask
-    score_f, score_r = coverage_score2(
-        group_win_matched(mask_f, Q, g, P, jstar),
-        group_win_matched(mask_r, Q, g, P, jstar),
-        lens, p.k, L, 1,
-    )
-    use_fwd = _use_fwd(score_f, score_r, p)
-    u = use_fwd[:, None]
-    idx_sel = torch.where(fwd_cc == u, idx_s, idx_d)
-    has_sel = torch.where(u, mask_f, mask_r) != 0
-    return idx_sel, has_sel, torch.where(use_fwd, score_f, score_r), score_f, score_r
+    with obs.span("engine.score"):
+        gmask = (1 << g) - 1
+        # `>>` is arithmetic on int32: the & gmask keeps only the g-bit field
+        mask_f = torch.where(fwd_cc, mword, mword >> 8) & gmask
+        mask_r = torch.where(fwd_cc, mword >> 24, mword >> 16) & gmask
+        score_f, score_r = coverage_score2(
+            group_win_matched(mask_f, Q, g, P, jstar),
+            group_win_matched(mask_r, Q, g, P, jstar),
+            lens, p.k, L, 1,
+        )
+    with obs.span("engine.select"):
+        use_fwd = _use_fwd(score_f, score_r, p)
+        u = use_fwd[:, None]
+        idx_sel = torch.where(fwd_cc == u, idx_s, idx_d)
+        has_sel = torch.where(u, mask_f, mask_r) != 0
+        return idx_sel, has_sel, torch.where(use_fwd, score_f, score_r), score_f, score_r
 
 
 def gband_expand(idx_sel, has_sel, tables) -> torch.Tensor:
@@ -621,8 +629,11 @@ def _score_mate_groupband(codes, lens, tables, p: AlignParams):
     probe masks alone, so only the selected orientation's half rows are
     gathered, ANDed and expanded to W words: gband_keys, gband_select,
     gband_expand."""
-    idx_sel, has_sel, *scores = gband_select(gband_keys(codes, lens, tables, p), lens, codes.shape[1], tables, p)
-    return (gband_expand(idx_sel, has_sel, tables), *scores)
+    with obs.span("engine.keys"):
+        keys = gband_keys(codes, lens, tables, p)
+    idx_sel, has_sel, *scores = gband_select(keys, lens, codes.shape[1], tables, p)
+    with obs.span("engine.select"):
+        return (gband_expand(idx_sel, has_sel, tables), *scores)
 
 
 def groupcls_probe(hi_i, lo_i, h1, fwd_c, valid, tables, g: int):
@@ -708,30 +719,36 @@ def _window_keys(codes, lens, n_buckets: int, p: AlignParams):
 def _score_bits(bits_f_w, bits_r_w, lens, L: int, p: AlignParams):
     """Per-window bitsets of both orientations -> coverage scores and the
     selected orientation's AND intersection (engine.py:2560-2567)."""
-    matched_f = (bits_f_w != 0).any(dim=-1)
-    matched_r = (bits_r_w != 0).any(dim=-1)
-    score_f, score_r = coverage_score2(matched_f, matched_r, lens, p.k, L, p.stride)
-    return _select_orientation(bits_f_w, bits_r_w, matched_f, matched_r, score_f, score_r, p)
+    with obs.span("engine.score"):
+        matched_f = (bits_f_w != 0).any(dim=-1)
+        matched_r = (bits_r_w != 0).any(dim=-1)
+        score_f, score_r = coverage_score2(matched_f, matched_r, lens, p.k, L, p.stride)
+    with obs.span("engine.select"):
+        return _select_orientation(bits_f_w, bits_r_w, matched_f, matched_r, score_f, score_r, p)
 
 
 def _score_mate_mono(codes, lens, tables, p: AlignParams):
     """engine.py:_score_mate, window-kernel mono branch: canonical k-mer
     keys hashed into the mono table, one fused probe per kept window."""
     bucket = tables["mono_bucket"]
-    hi_i, lo_i, h1, _h2, fwd_c, palin, valid = _window_keys(codes, lens, bucket.shape[0], p)
-    bits_f_w, bits_r_w = mono_probe(
-        bucket, h1, hi_i, lo_i, fwd_c, palin, valid, tables["mono_stash"], table_words(tables)
-    )
+    with obs.span("engine.keys"):
+        hi_i, lo_i, h1, _h2, fwd_c, palin, valid = _window_keys(codes, lens, bucket.shape[0], p)
+    with obs.span("engine.probe"):
+        bits_f_w, bits_r_w = mono_probe(
+            bucket, h1, hi_i, lo_i, fwd_c, palin, valid, tables["mono_stash"], table_words(tables)
+        )
     return _score_bits(bits_f_w, bits_r_w, lens, codes.shape[1], p)
 
 
 def _score_mate_inline(codes, lens, tables, p: AlignParams):
     """engine.py:_score_mate, two-choice inline branch (mono placement was
     infeasible): keys and both hashes at the index's n_buckets."""
-    hi_i, lo_i, h1, h2, fwd_c, palin, valid = _window_keys(codes, lens, p.n_buckets, p)
-    bits_f_w, bits_r_w = lookup_inline_bits(
-        hi_i, lo_i, h1, h2, fwd_c, palin, valid, tables, table_words(tables)
-    )
+    with obs.span("engine.keys"):
+        hi_i, lo_i, h1, h2, fwd_c, palin, valid = _window_keys(codes, lens, p.n_buckets, p)
+    with obs.span("engine.probe"):
+        bits_f_w, bits_r_w = lookup_inline_bits(
+            hi_i, lo_i, h1, h2, fwd_c, palin, valid, tables, table_words(tables)
+        )
     return _score_bits(bits_f_w, bits_r_w, lens, codes.shape[1], p)
 
 
@@ -828,20 +845,26 @@ def class_probe(keys, lens, L: int, tables, p: AlignParams):
     if p.group_g >= 2 and "groupcls_bucket" in tables:
         g = p.group_g
         jstar, cat = keys
-        cls_f, cls_r, mask_f, mask_r = groupcls_probe(*cat, tables, g)
+        with obs.span("engine.probe"):
+            cls_f, cls_r, mask_f, mask_r = groupcls_probe(*cat, tables, g)
         Q = cat[0].shape[1] - 1
         P = L - p.k + 1
-        score_f, score_r = coverage_score2(group_win_matched(mask_f, Q, g, P, jstar),
-                                           group_win_matched(mask_r, Q, g, P, jstar), lens, p.k, L, 1)
+        with obs.span("engine.score"):
+            score_f, score_r = coverage_score2(group_win_matched(mask_f, Q, g, P, jstar),
+                                               group_win_matched(mask_r, Q, g, P, jstar), lens, p.k, L, 1)
     else:
         hi, lo, h1, h2, fc, pal, valid = keys
-        if "mcls_bucket" in tables:
-            cls_f, cls_r = lookup_monocls(hi, lo, h1, fc, pal, valid, tables)
-        else:
-            cls_f, cls_r = lookup_classes(hi, lo, h1, h2, fc, pal, valid, tables)
-        score_f, score_r = coverage_score2(cls_f >= 0, cls_r >= 0, lens, p.k, L, p.stride)
-    use_fwd = _use_fwd(score_f, score_r, p)
-    return torch.where(use_fwd[:, None], cls_f, cls_r), torch.where(use_fwd, score_f, score_r), score_f, score_r
+        with obs.span("engine.probe"):
+            if "mcls_bucket" in tables:
+                cls_f, cls_r = lookup_monocls(hi, lo, h1, fc, pal, valid, tables)
+            else:
+                cls_f, cls_r = lookup_classes(hi, lo, h1, h2, fc, pal, valid, tables)
+        with obs.span("engine.score"):
+            score_f, score_r = coverage_score2(cls_f >= 0, cls_r >= 0, lens, p.k, L, p.stride)
+    with obs.span("engine.select"):
+        use_fwd = _use_fwd(score_f, score_r, p)
+        return (torch.where(use_fwd[:, None], cls_f, cls_r), torch.where(use_fwd, score_f, score_r),
+                score_f, score_r)
 
 
 def intersect_class_slices(cls_sel: torch.Tensor, slices) -> torch.Tensor:
@@ -882,8 +905,11 @@ def _score_mate_classes(codes, lens, tables, p: AlignParams):
     intersection directly (a tail column repeating a grid window's class
     is idempotent); the reads shorter than k+g-1 that it leaves unmapped
     are the pipeline's to repair, as on the group path."""
-    cls_sel, *scores = class_probe(class_keys(codes, lens, tables, p), lens, codes.shape[1], tables, p)
-    return (intersect_classes(cls_sel, tables), *scores)
+    with obs.span("engine.keys"):
+        keys = class_keys(codes, lens, tables, p)
+    cls_sel, *scores = class_probe(keys, lens, codes.shape[1], tables, p)
+    with obs.span("engine.select"):
+        return (intersect_classes(cls_sel, tables), *scores)
 
 
 def _score_mate(codes, lens, tables, p: AlignParams):
@@ -910,7 +936,8 @@ def align_step(tables, p: AlignParams, r1_codes, r1_lens, r2_codes=None, r2_lens
     pass_ (B,) bool."""
     m1 = _score_mate(r1_codes, r1_lens, tables, p)
     m2 = _score_mate(r2_codes, r2_lens, tables, p) if r2_codes is not None else None
-    return combine_mates(p, r1_lens, m1, r2_lens, m2)
+    with obs.span("engine.combine"):
+        return combine_mates(p, r1_lens, m1, r2_lens, m2)
 
 
 def _mate_valid(p: AlignParams, bits, score, lens):
@@ -1042,16 +1069,18 @@ class ChunkDispatch:
         for d, (dev, tables) in enumerate(self.shards):
             rows = slice(d * Cd, (d + 1) * Cd)
             args = []
-            for arrays in mates:
-                if len(arrays) == 3:
-                    words, lens, nflags = (a[rows] for a in arrays)
-                    codes = unpack_reads(self._to_dev(words, dev, torch.int32), self.max_len,
-                                         self._to_dev(nflags, dev, torch.int32))
-                else:
-                    codes, lens = arrays[0][rows], arrays[1][rows]
-                    codes = self._to_dev(codes, dev, torch.int8)
-                args += [codes, self._to_dev(lens, dev, torch.int32)]
-            flat, wire = self._step(tables, *args)
+            with obs.span("engine.h2d"):
+                for arrays in mates:
+                    if len(arrays) == 3:
+                        words, lens, nflags = (a[rows] for a in arrays)
+                        codes = unpack_reads(self._to_dev(words, dev, torch.int32), self.max_len,
+                                             self._to_dev(nflags, dev, torch.int32))
+                    else:
+                        codes, lens = arrays[0][rows], arrays[1][rows]
+                        codes = self._to_dev(codes, dev, torch.int8)
+                    args += [codes, self._to_dev(lens, dev, torch.int32)]
+            with obs.span("engine.step"):
+                flat, wire = self._step(tables, *args)
             flats.append(flat)
         return flats, wire, valid
 
@@ -1064,7 +1093,9 @@ class ChunkDispatch:
             flats = [flats] if isinstance(flats, torch.Tensor) else flats
             Cd = self.chunk_size // len(flats)
             for d, flat in enumerate(flats):
-                yield flat.cpu().numpy(), wire, min(max(valid - d * Cd, 0), Cd), Cd
+                with obs.span("engine.d2h"):
+                    arr = flat.cpu().numpy()
+                yield arr, wire, min(max(valid - d * Cd, 0), Cd), Cd
 
     def align_batch_async(self, r1_codes: np.ndarray, r1_lens: np.ndarray,
                           r2_codes: Optional[np.ndarray] = None,
@@ -1244,16 +1275,17 @@ class AlignEngine(ChunkDispatch):
     def pack(self, out):
         """align_step's outputs on this engine's wire -> (flat tensor, wire
         tag)."""
-        if self.wire == "full":
-            return pack_outputs(out), self.wire
-        rows = compress_band_rows(out["bits"], self.band_pw)
-        if self.wire == "band":
-            return pack_outputs({**out, "bits": rows}), self.wire
-        cap, Pw, packed16, hdr1 = self.idlist
-        # the band rows hold every nonzero word: counting them counts the
-        # class; classes over the cap never reach the TSV
-        out = {**out, "pass_": out["pass_"] & (popcount32_rows(rows[:, 1:]) <= cap), "_band": rows}
-        return pack_outputs_idlist(out, cap, Pw, packed16=packed16, hdr1=hdr1), self.wire
+        with obs.span("engine.pack"):
+            if self.wire == "full":
+                return pack_outputs(out), self.wire
+            rows = compress_band_rows(out["bits"], self.band_pw)
+            if self.wire == "band":
+                return pack_outputs({**out, "bits": rows}), self.wire
+            cap, Pw, packed16, hdr1 = self.idlist
+            # the band rows hold every nonzero word: counting them counts
+            # the class; classes over the cap never reach the TSV
+            out = {**out, "pass_": out["pass_"] & (popcount32_rows(rows[:, 1:]) <= cap), "_band": rows}
+            return pack_outputs_idlist(out, cap, Pw, packed16=packed16, hdr1=hdr1), self.wire
 
     def collect_async(self, pending):
         """Copy dispatched outputs to host numpy and unpack each chunk by
@@ -1265,18 +1297,20 @@ class AlignEngine(ChunkDispatch):
         outs = []
         W = table_words(self.tables)
         for arr, wire, valid, rows in self._host_shards(pending):
-            if wire == "idlist":
-                cap, _, packed16, hdr1 = self.idlist
-                outs.append(unpack_outputs_idlist(arr, rows, cap, valid, packed16, hdr1))
-            elif wire == "band":
-                out = unpack_outputs(arr, 1 + 2 * self.band_pw, valid)
-                out["band_rows"] = out.pop("bits")
-                outs.append(out)
-            else:
-                outs.append(unpack_outputs(arr, W, valid))
+            with obs.span("engine.unpack"):
+                if wire == "idlist":
+                    cap, _, packed16, hdr1 = self.idlist
+                    outs.append(unpack_outputs_idlist(arr, rows, cap, valid, packed16, hdr1))
+                elif wire == "band":
+                    out = unpack_outputs(arr, 1 + 2 * self.band_pw, valid)
+                    out["band_rows"] = out.pop("bits")
+                    outs.append(out)
+                else:
+                    outs.append(unpack_outputs(arr, W, valid))
         if not outs:
             return None
-        merged = {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+        with obs.span("engine.unpack"):
+            merged = {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
         if "band_rows" in merged:
             merged["band_meta"] = (self.band_pw, W)
         return merged

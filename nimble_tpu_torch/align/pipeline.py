@@ -36,7 +36,6 @@ each process's mesh spans the devices that process sees.
 """
 from __future__ import annotations
 
-import contextlib
 import json
 import os
 import queue
@@ -54,6 +53,7 @@ from nimble_tpu_torch.config import Config, load_library
 from nimble_tpu_torch.index.builder import KmerIndex, build_index_for_library
 from nimble_tpu_torch.align.engine import AlignEngine, expand_band_rows_np, ids_to_bits_np
 from nimble_tpu_torch.align.stacked import NotStackable, StackedEngine
+from nimble_tpu_torch import observability as obs
 
 TSV_HEADER = [
     "nimble_features",
@@ -72,6 +72,8 @@ TSV_HEADER = [
 # spans dispatched to the device and not yet emitted; the reader prefetch
 # and the span queue each hold one more
 INFLIGHT = 2
+# reads between two of align's stdout progress lines
+PROGRESS_EVERY = 1_000_000
 
 
 def decode_bitsets(bits: np.ndarray, n_features: int) -> np.ndarray:
@@ -503,7 +505,8 @@ def _prefetch_iter(gen, depth: int = 3):
     The end marker waits for room like any item: the reference drops it
     when the queue is full at the end (a consumer slower than the reader,
     as in a run whose first span waits for the card), and its consumer
-    then waits forever."""
+    then waits forever. The producer is the `nimble-read` thread; each
+    draw from `gen` is a `pipeline.read` span."""
     q = queue.Queue(maxsize=depth)
     sentinel = object()
     stop = threading.Event()
@@ -511,7 +514,11 @@ def _prefetch_iter(gen, depth: int = 3):
 
     def run():
         try:
-            for item in gen:
+            while True:
+                with obs.span("pipeline.read"):
+                    item = next(gen, sentinel)
+                if item is sentinel:
+                    break
                 while not stop.is_set():
                     try:
                         q.put(item, timeout=0.2)
@@ -531,7 +538,7 @@ def _prefetch_iter(gen, depth: int = 3):
                 except queue.Full:
                     continue
 
-    threading.Thread(target=run, daemon=True, name="bam-prefetch").start()
+    threading.Thread(target=run, daemon=True, name="nimble-read").start()
     try:
         while True:
             item = q.get()
@@ -880,14 +887,34 @@ def _align_files(reference: str, output: str, inputs: Sequence[str], device: tor
                  strand_filter: str, chunk_size: Optional[int], max_len: int,
                  batch_records: Optional[int], resume: bool, trim: str, num_cores: int, probe: str,
                  mesh_plan) -> int:
-    """align_files' run, with the mesh parsed."""
+    """align_files' run, with the mesh parsed: all of it one `align` span,
+    under NIMBLE_TPU_PROFILE one torch.profiler trace on every thread. The
+    counters start from zero, and their totals go to the run log when the
+    run ends, failed or not."""
+    obs.reset_counters()
+    try:
+        with obs.profile(device), obs.span("align"):
+            return _align_run(reference, output, inputs, device, strand_filter, chunk_size, max_len,
+                              batch_records, resume, trim, num_cores, probe, mesh_plan)
+    finally:
+        obs.write_counters(obs.runlog())
+
+
+def _align_run(reference: str, output: str, inputs: Sequence[str], device: torch.device,
+               strand_filter: str, chunk_size: Optional[int], max_len: int,
+               batch_records: Optional[int], resume: bool, trim: str, num_cores: int, probe: str,
+               mesh_plan) -> int:
+    """The align itself. Its threads: the reader's (`nimble-read`, with
+    `nimble-parse` workers under -c), the feeder (`nimble-feed`: the 2-bit
+    pack and the span cut), this one (dispatch) and emission
+    (`nimble-emit`); each counts its busy and wait time in spans
+    (observability.COUNTERS)."""
     from nimble_tpu_torch.io.packing import pack_batch
-    from nimble_tpu_torch.observability import Throughput, profile, runlog
 
     from nimble_tpu_torch.align.host_probe import HostMonoProber, patch_short_reads
 
     group_g = 0 if probe == "mono" else None
-    log = runlog()
+    log = obs.runlog()
     world_pid, world_n = _align_world()
     if world_n > 1:
         log.event("world", pid=world_pid, n=world_n)
@@ -988,18 +1015,17 @@ def _align_files(reference: str, output: str, inputs: Sequence[str], device: tor
     reader_batch = batch_records or int(os.environ.get("NIMBLE_TPU_READER_BATCH", "0") or 0) or (1 << 17)
     total = resumed_total if world_n > 1 else 0
     span_meta: List[Tuple[int, Dict[str, int]]] = list(resumed_spans)
-    tput = Throughput(log)
+    aligned = 0  # reads this process aligned in this run
+    progress = [PROGRESS_EVERY, 0, 0.0]  # the next line's reads; the last line's reads and wall
     failed = False
     reader_obj = None
     emit_thread = None
     emitq: "queue.Queue" = queue.Queue(maxsize=INFLIGHT)
     emit_exc: List[BaseException] = []
-    # NIMBLE_TPU_PROFILE traces the span loop, from the feeder through the
-    # emission thread's join
-    profiled = contextlib.ExitStack()
     try:
         batches, reader_obj = _make_batches(inputs, is_bam, reader_batch, reader_len, num_cores)
-        first = next(batches, None)
+        with obs.span("pipeline.first_batch"):
+            first = next(batches, None)
         if first is None:
             for r in runners:
                 r.close()
@@ -1040,7 +1066,6 @@ def _align_files(reference: str, output: str, inputs: Sequence[str], device: tor
 
             reader_obj.set_skip(skip_pred)
         feeder = SpanFeeder(span, paired)
-        profiled.enter_context(profile(device))
 
         def patch_short(r, out, sb):
             # group paths only: rows whose shortest mate is under k+g-1 get
@@ -1074,26 +1099,39 @@ def _align_files(reference: str, output: str, inputs: Sequence[str], device: tor
             if patched:
                 log.event("short_read_patch", rows=patched)
 
+        def report_progress():
+            # the stdout progress line: the rate since the align began and
+            # since the last line
+            wall = obs.counter_totals()["align"][0]
+            reads0, wall0 = progress[1], progress[2]
+            print(f"Processed {aligned} reads ({aligned / wall:,.0f} reads/s cumulative, "
+                  f"{(aligned - reads0) / max(wall - wall0, 1e-9):,.0f} current)", flush=True)
+            progress[:] = [progress[0] + PROGRESS_EVERY, aligned, wall]
+
         def finalize(entry):
             # the span's rows are written before its checkpoint, so the
             # sidecar only ever names spans whose bytes are complete
-            nonlocal total
+            nonlocal total, aligned
             reads_end, n, handles, sb, span_idx = entry
             pre = [r._file.tell() for r in runners] if world_n > 1 else None
-            if stacked is not None:
-                outs = stacked.collect_async(handles) or [None] * len(runners)
-            else:
-                outs = [r.engine.collect_async(h) for r, h in zip(runners, handles)]
-            for r, out in zip(runners, outs):
-                patch_short(r, out, sb)
-                r.emit_out(out, sb)
-            total += n
-            tput.add(n)
-            if world_n > 1:
-                span_meta.append((span_idx, {r.final_path: r._file.tell() - p for r, p in zip(runners, pre)}))
-                save_progress(reads_end, spans=span_meta, total_done=total)
-            else:
-                save_progress(reads_end)
+            with obs.span("engine.collect"):
+                if stacked is not None:
+                    outs = stacked.collect_async(handles) or [None] * len(runners)
+                else:
+                    outs = [r.engine.collect_async(h) for r, h in zip(runners, handles)]
+            with obs.span("pipeline.emit"):
+                for r, out in zip(runners, outs):
+                    patch_short(r, out, sb)
+                    r.emit_out(out, sb)
+                total += n
+                aligned += n
+                if aligned >= progress[0]:
+                    report_progress()
+                if world_n > 1:
+                    span_meta.append((span_idx, {r.final_path: r._file.tell() - p for r, p in zip(runners, pre)}))
+                    save_progress(reads_end, spans=span_meta, total_done=total)
+                else:
+                    save_progress(reads_end)
 
         def submit(sb):
             # per-runner trim applies to the lens only; windows beyond the
@@ -1127,21 +1165,23 @@ def _align_files(reference: str, output: str, inputs: Sequence[str], device: tor
                 finally:
                     emitq.task_done()
 
-        emit_thread = threading.Thread(target=emit_worker, daemon=True)
+        emit_thread = threading.Thread(target=emit_worker, daemon=True, name="nimble-emit")
         emit_thread.start()
 
         def qput(item):
-            while True:
-                if emit_exc:
-                    raise emit_exc[0]
-                try:
-                    emitq.put(item, timeout=0.5)
-                    return
-                except queue.Full:
-                    continue
+            with obs.span("pipeline.backpressure"):
+                while True:
+                    if emit_exc:
+                        raise emit_exc[0]
+                    try:
+                        emitq.put(item, timeout=0.5)
+                        return
+                    except queue.Full:
+                        continue
 
         def drain():
-            emitq.join()
+            with obs.span("pipeline.backpressure"):
+                emitq.join()
             if emit_exc:
                 raise emit_exc[0]
 
@@ -1162,7 +1202,9 @@ def _align_files(reference: str, output: str, inputs: Sequence[str], device: tor
             cursor += n
             if world_n > 1 and span_idx % world_n != world_pid:
                 return  # another process owns this span
-            qput((cursor, n, submit(sb), sb, span_idx))
+            with obs.span("engine.submit"):
+                handles = submit(sb)
+            qput((cursor, n, handles, sb, span_idx))
 
         # reader + 2-bit packing run on their own thread, behind the
         # dispatch loop; the bounded queue caps buffered spans
@@ -1173,7 +1215,12 @@ def _align_files(reference: str, output: str, inputs: Sequence[str], device: tor
                 to_skip = reads_done  # the resume fast-forward
                 t_ff = time.perf_counter()
                 L_cur = L
-                for batch in chain([first], batches):
+                reader = chain([first], batches)
+                while True:
+                    with obs.span("pipeline.feed_wait"):
+                        batch = next(reader, None)
+                    if batch is None:
+                        break
                     if "skip" in batch:
                         # a decode-sharded batch: counted like real records,
                         # by the fast-forward and by the feeder
@@ -1184,7 +1231,9 @@ def _align_files(reference: str, output: str, inputs: Sequence[str], device: tor
                         if to_skip:
                             batch = {"skip": n - to_skip}
                             to_skip = 0
-                        for sb in feeder.add(batch):
+                        with obs.span("pipeline.pack"):
+                            sbs = feeder.add(batch)
+                        for sb in sbs:
                             spanq.put(("span", sb))
                         continue
                     n = batch["r1_lens"].shape[0]
@@ -1204,18 +1253,22 @@ def _align_files(reference: str, output: str, inputs: Sequence[str], device: tor
                         L_cur = min(_round_len(m), reader_len)
                         feeder.repack_width((L_cur + 15) // 16, (L_cur + 31) // 32)
                         spanq.put(("rebuild", L_cur))
-                    for sb in feeder.add(pack_batch(batch, L_cur)):
+                    with obs.span("pipeline.pack"):
+                        sbs = feeder.add(pack_batch(batch, L_cur))
+                    for sb in sbs:
                         spanq.put(("span", sb))
-                tail = feeder.flush()
+                with obs.span("pipeline.pack"):
+                    tail = feeder.flush()
                 if tail is not None:
                     spanq.put(("span", tail))
                 spanq.put(None)
             except BaseException as e:  # surface to the main thread
                 spanq.put(e)
 
-        threading.Thread(target=feed, daemon=True).start()
+        threading.Thread(target=feed, daemon=True, name="nimble-feed").start()
         while True:
-            item = spanq.get()
+            with obs.span("pipeline.starved"):
+                item = spanq.get()
             if item is None:
                 break
             if isinstance(item, BaseException):
@@ -1247,7 +1300,6 @@ def _align_files(reference: str, output: str, inputs: Sequence[str], device: tor
         if emit_thread is not None:
             emitq.put(None)
             emit_thread.join()
-        profiled.close()
         for r in runners:
             r.close()
     if failed:
@@ -1268,7 +1320,9 @@ def _align_files(reference: str, output: str, inputs: Sequence[str], device: tor
     log.event("checkpoints", n=checkpoints[0], wall_s=checkpoints[1])
     if reads_done:
         log.event("resume", reads_done=reads_done, fast_forward_s=fast_forward_s[0])
-    log.event("align_done", total=total, **tput.final())
+    wall = obs.counter_totals()["align"][0]
+    log.event("align_done", total=total, reads=aligned, wall_s=round(wall, 3),
+              reads_per_s=round(aligned / wall, 1) if wall > 0 else 0.0)
     rstats = getattr(reader_obj, "stats", None)
     if rstats and rstats.get("skipped_records"):
         log.event("decode_shard", **rstats)

@@ -47,6 +47,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from nimble_tpu_torch import observability as obs
 from nimble_tpu_torch.config import Config
 from nimble_tpu_torch.index.builder import KmerIndex
 from nimble_tpu_torch.align.engine import (
@@ -275,14 +276,16 @@ def group_window(codes, lens, tables, p0: AlignParams, g: int):
     """The group stack's window stage (stacked.py:_group_rows' first half):
     the kmer_keys kernel at k+g-1, then the grid and tail probe keys
     (engine._group_keys) -> (jstar, planes)."""
-    return _group_keys(codes, lens, p0.k + g - 1, g, tables["sg_bucket"].shape[0])
+    with obs.span("engine.keys"):
+        return _group_keys(codes, lens, p0.k + g - 1, g, tables["sg_bucket"].shape[0])
 
 
 def group_probe_rows(keys, tables, W_cat: int, g: int):
     """ONE merged-table probe per position, shared by every library ->
     (and_f, mask_f, and_r, mask_r, Q, jstar)."""
     jstar, cat = keys
-    and_f, mask_f, and_r, mask_r = stacked_group_probe(*cat, tables, W_cat, g)
+    with obs.span("engine.probe"):
+        and_f, mask_f, and_r, mask_r = stacked_group_probe(*cat, tables, W_cat, g)
     return and_f, mask_f, and_r, mask_r, cat[0].shape[1] - 1, jstar
 
 
@@ -294,22 +297,26 @@ def group_tail(rows, codes, lens, p: AlignParams, li: int, w0: int, w1: int, g: 
     L = codes.shape[1]
     P = L - p.k + 1
     mf, mr = mask_f[..., li], mask_r[..., li]
-    sf, sr = coverage_score2(group_win_matched(mf, Q, g, P, jstar),
-                             group_win_matched(mr, Q, g, P, jstar), lens, p.k, L, 1)
-    return _select_orientation(and_f[..., w0:w1], and_r[..., w0:w1], mf != 0, mr != 0, sf, sr, p)
+    with obs.span("engine.score"):
+        sf, sr = coverage_score2(group_win_matched(mf, Q, g, P, jstar),
+                                 group_win_matched(mr, Q, g, P, jstar), lens, p.k, L, 1)
+    with obs.span("engine.select"):
+        return _select_orientation(and_f[..., w0:w1], and_r[..., w0:w1], mf != 0, mr != 0, sf, sr, p)
 
 
 def mono_window(codes, lens, tables, p0: AlignParams):
     """The mono stack's window stage (stacked.py:_probe_rows' first half):
     the kmer_keys kernel at k and the stride slice (contiguous planes)."""
-    return _window_keys(codes, lens, tables["mono_bucket"].shape[0], p0)
+    with obs.span("engine.keys"):
+        return _window_keys(codes, lens, tables["mono_bucket"].shape[0], p0)
 
 
 def mono_probe_rows(keys, tables, W_cat: int):
     """ONE mono_probe kernel launch over the merged table at S =
     STACK_SLOTS, W = W_cat -> (bits_f, bits_r), each (B, P, W_cat)."""
     hi_i, lo_i, h1, _h2, fc, pal, valid = keys
-    return mono_probe(tables["mono_bucket"], h1, hi_i, lo_i, fc, pal, valid, tables["mono_stash"], W_cat)
+    with obs.span("engine.probe"):
+        return mono_probe(tables["mono_bucket"], h1, hi_i, lo_i, fc, pal, valid, tables["mono_stash"], W_cat)
 
 
 def mono_tail(rows, codes, lens, p: AlignParams, li: int, w0: int, w1: int):
@@ -327,7 +334,8 @@ def library_tails(params: Sequence[AlignParams], seg_words: Sequence[int], tail,
         w0, w1 = int(seg_words[li]), int(seg_words[li + 1])
         m = [tail(r, codes, lens, p, li, w0, w1) for r, (codes, lens) in zip(rows, mates)]
         r2 = (mates[1][1], m[1]) if len(m) > 1 else (None, None)
-        outs.append(combine_mates(p, mates[0][1], m[0], *r2))
+        with obs.span("engine.combine"):
+            outs.append(combine_mates(p, mates[0][1], m[0], *r2))
     return outs
 
 
@@ -469,7 +477,9 @@ class StackedEngine(ChunkDispatch):
         return stacked_align_step(tables, self.params, self.seg_words, *args)
 
     def _step(self, tables, *args):
-        return pack_stacked(self.step_outputs(*args, tables=tables)), self.wire
+        outs = self.step_outputs(*args, tables=tables)
+        with obs.span("engine.pack"):
+            return pack_stacked(outs), self.wire
 
     def collect_async(self, pending) -> Optional[List[Dict[str, np.ndarray]]]:
         """Copy dispatched outputs to host numpy and split them by library
@@ -480,9 +490,10 @@ class StackedEngine(ChunkDispatch):
         per_call = [arr.reshape(-1, row_w)[:valid] for arr, _wire, valid, _rows in self._host_shards(pending)]
         result = []
         off = 0
-        for w in self._lib_widths:
-            chunks = [unpack_outputs(np.ascontiguousarray(a[:, off : off + w + PACKED_EXTRA]).reshape(-1),
-                                     w, a.shape[0]) for a in per_call]
-            result.append({k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]})
-            off += w + PACKED_EXTRA
+        with obs.span("engine.unpack"):
+            for w in self._lib_widths:
+                chunks = [unpack_outputs(np.ascontiguousarray(a[:, off : off + w + PACKED_EXTRA]).reshape(-1),
+                                         w, a.shape[0]) for a in per_call]
+                result.append({k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]})
+                off += w + PACKED_EXTRA
         return result

@@ -6,10 +6,12 @@ hot path with `-c`, reference nimble/__main__.py:180; here the device does
 the alignment, so host decode is the part that must scale). Layout:
 
   producer thread:  read/zlib-inflate byte chunks, cut at FASTQ record
-                    boundaries (every 4th newline), keep R1/R2 in lockstep
+  (`nimble-read`)   boundaries (every 4th newline), keep R1/R2 in lockstep;
+                    each chunk's draw a `pipeline.read` span
   parse pool:       num_threads workers call nt_fastq_parse_buffer (ctypes
-                    releases the GIL; the parse+2-bit-encode loop runs truly
-                    parallel across cores)
+  (`nimble-parse`)  releases the GIL; the parse+2-bit-encode loop runs truly
+                    parallel across cores); each parse a `pipeline.parse`
+                    span
   consumer:         __iter__ drains a bounded queue of parsed futures and
                     yields the same batch dicts as io.fastq.FastqReader
 
@@ -29,6 +31,7 @@ from typing import Iterator, Optional
 
 import numpy as np
 
+from nimble_tpu_torch import observability as obs
 from nimble_tpu_torch.io import native as _native
 
 _CHUNK_BYTES = 8 << 20
@@ -274,6 +277,12 @@ def _record_buffers(stream, records_per_batch: int):
         yield tail, -1
 
 
+def _parse_counted(buf, n_hint: int, max_len: int, with_strings: bool):
+    """_parse_buffer in a `pipeline.parse` span (the parse pool's work)."""
+    with obs.span("pipeline.parse"):
+        return _parse_buffer(buf, n_hint, max_len, with_strings)
+
+
 def _parse_buffer(buf, n_hint: int, max_len: int, with_strings: bool):
     """Parse one complete-records buffer (bytes OR a uint8 ndarray view of
     a contiguous inflated file) via the native layer. Returns the same
@@ -369,7 +378,7 @@ class ThreadedFastqReader:
 
     def __iter__(self) -> Iterator[dict]:
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
-        pool = ThreadPoolExecutor(max_workers=self.num_threads)
+        pool = ThreadPoolExecutor(max_workers=self.num_threads, thread_name_prefix="nimble-parse")
         stop = threading.Event()
 
         def _buffers_for(path):
@@ -399,12 +408,22 @@ class ThreadedFastqReader:
                 )
             return _record_buffers(_stream_chunks(path), self.batch_size)
 
+        def draw(g):
+            # the next record buffer: the inflate and the record cut
+            with obs.span("pipeline.read"):
+                return next(g)
+
         def produce():
             try:
-                g1 = _buffers_for(self.r1_path)
-                g2 = _buffers_for(self.r2_path) if self.r2_path else None
+                with obs.span("pipeline.read"):  # a whole-file inflate runs here
+                    g1 = _buffers_for(self.r1_path)
+                    g2 = _buffers_for(self.r2_path) if self.r2_path else None
                 r0 = 0  # global record index of the next batch
-                for buf1, n1 in g1:
+                while True:
+                    try:
+                        buf1, n1 = draw(g1)
+                    except StopIteration:
+                        break
                     skip = (
                         n1 > 0
                         and self._skip is not None
@@ -414,7 +433,7 @@ class ThreadedFastqReader:
                         # consume (but never parse) the mate buffer too
                         if g2 is not None:
                             try:
-                                next(g2)
+                                draw(g2)
                             except StopIteration:
                                 raise ValueError(
                                     "paired FASTQ files have different "
@@ -423,20 +442,20 @@ class ThreadedFastqReader:
                         item = ("skip", n1)
                     else:
                         f1 = pool.submit(
-                            _parse_buffer, buf1, n1, self.max_len,
+                            _parse_counted, buf1, n1, self.max_len,
                             self.with_strings,
                         )
                         f2 = None
                         if g2 is not None:
                             try:
-                                buf2, n2 = next(g2)
+                                buf2, n2 = draw(g2)
                             except StopIteration:
                                 raise ValueError(
                                     "paired FASTQ files have different "
                                     "record counts"
                                 )
                             f2 = pool.submit(
-                                _parse_buffer, buf2, n2, self.max_len,
+                                _parse_counted, buf2, n2, self.max_len,
                                 self.with_strings,
                             )
                         item = (f1, f2)
@@ -452,7 +471,7 @@ class ThreadedFastqReader:
                         return
                 if g2 is not None:
                     try:
-                        next(g2)
+                        draw(g2)
                         raise ValueError(
                             "paired FASTQ files have different record counts"
                         )
@@ -462,7 +481,7 @@ class ThreadedFastqReader:
             except BaseException as e:  # surface reader errors to the consumer
                 q.put(e)
 
-        producer = threading.Thread(target=produce, daemon=True)
+        producer = threading.Thread(target=produce, daemon=True, name="nimble-read")
         producer.start()
         try:
             while True:
