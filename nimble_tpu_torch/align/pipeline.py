@@ -905,7 +905,8 @@ def _align_run(reference: str, output: str, inputs: Sequence[str], device: torch
                batch_records: Optional[int], resume: bool, trim: str, num_cores: int, probe: str,
                mesh_plan) -> int:
     """The align itself. Its threads: the reader's (`nimble-read`, with
-    `nimble-parse` workers under -c), the feeder (`nimble-feed`: the 2-bit
+    `nimble-parse` and, on a gz of several members, `nimble-inflate`
+    workers sharing -c), the feeder (`nimble-feed`: the 2-bit
     pack and the span cut), this one (dispatch) and emission
     (`nimble-emit`); each counts its busy and wait time in spans
     (observability.COUNTERS)."""

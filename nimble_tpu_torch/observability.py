@@ -41,6 +41,7 @@ COUNTERS = {
     "engine.submit": "main",
     "pipeline.backpressure": "main",
     "pipeline.read": "nimble-read",
+    "pipeline.inflate": "nimble-inflate",
     "pipeline.parse": "nimble-parse",
     "pipeline.feed_wait": "nimble-feed",
     "pipeline.pack": "nimble-feed",
