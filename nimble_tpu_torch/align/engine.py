@@ -1144,6 +1144,13 @@ class ChunkDispatch:
         return self.collect_async(self.align_batch_async(r1_codes, r1_lens, r2_codes, r2_lens))
 
 
+def wire_bytes(pending) -> int:
+    """Bytes of the dispatched outputs of pending entries (ChunkDispatch's
+    contract): what collecting them copies to the host."""
+    return sum(f.numel() * f.element_size() for flats, _, _ in pending
+               for f in ([flats] if isinstance(flats, torch.Tensor) else flats))
+
+
 def _tensors(tables: dict):
     """The tensors of a table set, a mesh's class slices included."""
     for v in tables.values():

@@ -51,7 +51,7 @@ import torch
 
 from nimble_tpu_torch.config import Config, load_library
 from nimble_tpu_torch.index.builder import KmerIndex, build_index_for_library
-from nimble_tpu_torch.align.engine import AlignEngine, expand_band_rows_np, ids_to_bits_np
+from nimble_tpu_torch.align.engine import AlignEngine, expand_band_rows_np, ids_to_bits_np, wire_bytes
 from nimble_tpu_torch.align.stacked import NotStackable, StackedEngine
 from nimble_tpu_torch import observability as obs
 
@@ -989,6 +989,7 @@ def _align_run(reference: str, output: str, inputs: Sequence[str], device: torch
 
     span = None
     checkpoints = [0, 0.0]  # sidecar writes and their seconds (the run log's `checkpoints`)
+    wire = [0]  # bytes of the spans' outputs copied to the host (the run log's `align_done`)
     fast_forward_s = [0.0]  # the feeder's seconds to reach a resumed cursor
 
     def save_progress(done_reads, spans=None, total_done=0):
@@ -1115,6 +1116,7 @@ def _align_run(reference: str, output: str, inputs: Sequence[str], device: torch
             nonlocal total, aligned
             reads_end, n, handles, sb, span_idx = entry
             pre = [r._file.tell() for r in runners] if world_n > 1 else None
+            wire[0] += wire_bytes(handles if stacked is not None else [e for h in handles for e in h])
             with obs.span("engine.collect"):
                 if stacked is not None:
                     outs = stacked.collect_async(handles) or [None] * len(runners)
@@ -1323,7 +1325,7 @@ def _align_run(reference: str, output: str, inputs: Sequence[str], device: torch
         log.event("resume", reads_done=reads_done, fast_forward_s=fast_forward_s[0])
     wall = obs.counter_totals()["align"][0]
     log.event("align_done", total=total, reads=aligned, wall_s=round(wall, 3),
-              reads_per_s=round(aligned / wall, 1) if wall > 0 else 0.0)
+              reads_per_s=round(aligned / wall, 1) if wall > 0 else 0.0, wire_bytes=wire[0])
     rstats = getattr(reader_obj, "stats", None)
     if rstats and rstats.get("skipped_records"):
         log.event("decode_shard", **rstats)

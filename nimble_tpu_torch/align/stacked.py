@@ -69,9 +69,10 @@ from nimble_tpu_torch.align.kernels import mono_probe
 from nimble_tpu_torch.align.tables import (
     GROUP_MAX_WORDS,
     MONO_KEYS,
-    _as_tensor,
     _bits_of,
+    _copy_to_device,
     _group_entry_payload,
+    _nbytes,
     _occupied_entries,
     _single_hash_placement,
     tables_from_reference,
@@ -424,17 +425,19 @@ class StackedEngine(ChunkDispatch):
             and self.max_len >= indexes[0].k + indexes[0].pair_g - 1
             and os.environ.get("NIMBLE_TPU_NO_GROUP_PROBE", "") != "1"
         )
-        np_tables = build_stacked_group_tables(indexes) if group_ok else None
-        self.group_g = 0
-        if np_tables is not None:
-            self.group_g = int(np_tables.pop("pair_g"))
-        else:
-            np_tables = build_stacked_tables(indexes)
+        with obs.runlog().stage("tables.host") as end:
+            np_tables = build_stacked_group_tables(indexes) if group_ok else None
+            self.group_g = 0
+            if np_tables is not None:
+                self.group_g = int(np_tables.pop("pair_g"))
+            else:
+                np_tables = build_stacked_tables(indexes)
+            end["bytes"] = _nbytes(np_tables or {})
         if np_tables is None:
             raise NotStackable("libraries not stackable (width/memory budget)")
         self.seg_words = np_tables.pop("seg_words")
         if self.group_g:
-            tables: Dict[str, torch.Tensor] = {k: _as_tensor(np_tables[k], self.device) for k in STACKED_GROUP_KEYS}
+            tables = _copy_to_device({k: np_tables[k] for k in STACKED_GROUP_KEYS}, self.device)
         else:
             # re-laid slot-major with its stash as one matrix, as mono_probe reads it
             tables = tables_from_reference({k: np_tables[k] for k in MONO_KEYS}, self.device, owned=True)

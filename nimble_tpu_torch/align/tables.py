@@ -60,6 +60,7 @@ from __future__ import annotations
 import os
 import time
 import zipfile
+from functools import partial
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -1003,6 +1004,23 @@ def _as_tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.require(a, np.int32, ["C", "W"])).to(device)
 
 
+def _nbytes(arrays: dict) -> int:
+    """Bytes of the numpy arrays among a table set's values."""
+    return sum(a.nbytes for a in arrays.values() if isinstance(a, np.ndarray))
+
+
+def _copy_to_device(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """Every array as an int32 tensor on `device` (`_as_tensor`), timed as
+    the run log's `tables.copy` stage with the tensors' `bytes`; the card
+    is synchronized before the stage ends."""
+    with runlog().stage("tables.copy", device=str(device)) as end:
+        out = {k: _as_tensor(a, device) for k, a in arrays.items()}
+        end["bytes"] = sum(t.numel() * t.element_size() for t in out.values())
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+    return out
+
+
 def _gband_to_device(np_tables, W: int, device) -> Dict[str, torch.Tensor]:
     """The gband arrays the step reads, as tensors, plus W as a plain int:
     the probe rows, the stash planes, the band table re-laid
@@ -1013,10 +1031,9 @@ def _gband_to_device(np_tables, W: int, device) -> Dict[str, torch.Tensor]:
     width = np_tables["gband_bucket"].shape[1]
     if width != MONO_SLOTS * (4 if "gband_packedrow" in np_tables else 5):
         raise ValueError(f"gband bucket rows of {width} words do not match the packed-row marker")
-    keys = [k for k in GBAND_KEYS if k != "gband_table"] + ["gband_ptr8"] * ("gband_ptr8" in np_tables)
-    out = {k: _as_tensor(np_tables[k], device) for k in keys}
-    out["gband_page"], out["gband_band"] = _relay_bands(
-        _as_tensor(np_tables["gband_table"], device), "gband_relayout")
+    keys = GBAND_KEYS + ("gband_ptr8",) * ("gband_ptr8" in np_tables)
+    out = _copy_to_device({k: np_tables[k] for k in keys}, device)
+    out["gband_page"], out["gband_band"] = _relay_bands(out.pop("gband_table"), "gband_relayout")
     if "gband_single" not in np_tables:
         out["gband_two"] = True
     return {**out, "gband_words": int(W)}
@@ -1029,11 +1046,14 @@ def _class_tables_to_device(np_tables, keys, class_bits: np.ndarray, bandrow: Op
     strict class bands exist, their rows re-laid as `class_page` (C,) and
     `class_band` (C, 2 Pw) (the run log's `class_relayout` stage) and W as
     the plain int `class_words`."""
-    out = {k: _as_tensor(np_tables[k], device) for k in keys}
+    arrays = {k: np_tables[k] for k in keys}
     if bandrow is None:
-        out["class_bits"] = _as_tensor(class_bits, device)
+        arrays["class_bits"] = class_bits
     else:
-        out["class_page"], out["class_band"] = _relay_bands(_as_tensor(bandrow, device), "class_relayout")
+        arrays["class_bandrow"] = bandrow
+    out = _copy_to_device(arrays, device)
+    if bandrow is not None:
+        out["class_page"], out["class_band"] = _relay_bands(out.pop("class_bandrow"), "class_relayout")
         out["class_words"] = int(class_bits.shape[1])
     return out
 
@@ -1073,14 +1093,14 @@ def tables_from_reference(np_tables, device, owned: bool = False) -> Dict[str, t
     else the wide two-choice class-id bucket; the class-id paths with
     `class_bits` or, where the reference ships `class_bandrow`, the band
     rows re-laid (`_class_tables_to_device`). Only that path's entries are
-    carried. The mono table is re-laid on `device`, as the run log's
-    `mono_relayout` stage; on the CPU, in a copy of the caller's array,
-    unless `owned` says the arrays are this call's to change (device_tables'
-    fresh build), so that a multi-GB table is not duplicated on the host."""
-    as_t = lambda a: _as_tensor(a, device)
+    carried, copied as the run log's `tables.copy` stage. The mono table is
+    re-laid on `device`, as the run log's `mono_relayout` stage; on the
+    CPU, in a copy of the caller's array, unless `owned` says the arrays
+    are this call's to change (device_tables' fresh build), so that a
+    multi-GB table is not duplicated on the host."""
     has = lambda keys: all(k in np_tables for k in keys)
     if has(GROUP_KEYS):
-        return {k: as_t(np_tables[k]) for k in GROUP_KEYS}
+        return _copy_to_device({k: np_tables[k] for k in GROUP_KEYS}, device)
     if has(GBAND_KEYS):
         return _gband_to_device(np_tables, np_tables["class_bits"].shape[1], device)
     class_bits = np_tables.get("class_bits")
@@ -1095,7 +1115,8 @@ def tables_from_reference(np_tables, device, owned: bool = False) -> Dict[str, t
              np_tables["mono_stash_vs_bits"], np_tables["mono_stash_vd_bits"]],
             axis=1,
         )
-        bucket = as_t(np_tables["mono_bucket"])
+        out = _copy_to_device({"mono_bucket": np_tables["mono_bucket"], "mono_stash": stash}, device)
+        bucket = out["mono_bucket"]
         if bucket.device.type == "cpu" and not owned:  # the tensor may share the caller's array
             bucket = bucket.clone()
         with runlog().stage("mono_relayout", rows=bucket.shape[0], bytes=bucket.numel() * 4,
@@ -1105,9 +1126,9 @@ def tables_from_reference(np_tables, device, owned: bool = False) -> Dict[str, t
             relayout_mono(bucket, stash.shape[1] // 2 - 1)
             if bucket.is_cuda:
                 torch.cuda.synchronize(bucket.device)
-        return {"mono_bucket": bucket, "mono_stash": as_t(stash)}
+        return {"mono_bucket": bucket, "mono_stash": out["mono_stash"]}
     if has(INLINE_KEYS):
-        return {k: as_t(np_tables[k]) for k in INLINE_KEYS}
+        return _copy_to_device({k: np_tables[k] for k in INLINE_KEYS}, device)
     if has(CLASSES_KEYS) and class_bits is not None:
         return _class_tables_to_device(np_tables, CLASSES_KEYS, class_bits, np_tables.get("class_bandrow"), device)
     raise ValueError(f"reference tables carry no group, mono or two-choice entries (keys {sorted(np_tables)})")
@@ -1115,16 +1136,28 @@ def tables_from_reference(np_tables, device, owned: bool = False) -> Dict[str, t
 
 def device_tables(index: KmerIndex, device, group_ok: bool = True, inline_ok: bool = True) -> Dict[str, torch.Tensor]:
     """The tables of one path on `device`, chosen as the reference's
-    `_device_tables(index, inline_ok=inline_ok, group_ok=group_ok)` chooses.
-    W <= 16 (and inline_ok): the group table when allowed, the index has
-    group entries, W <= 8 and placement fits; else the mono table when
-    placement fits; else the two-choice inline bucket. Otherwise (W > 16,
-    or any W without inline_ok, as a feature-split mesh asks), when allowed
-    and the index has group entries: the gband tables when banding works
-    and they place, else the groupcls table when it places. Otherwise the
-    monocls table when it places, else the two-choice class-id bucket, each
-    with the strict class bands where every class fits one
-    (`build_class_bands`, never at W <= 16), else with `class_bits`."""
+    `_device_tables(index, inline_ok=inline_ok, group_ok=group_ok)` chooses
+    (`_host_tables`). Their build on the host (or the gband sidecar's load)
+    is the run log's `tables.host` stage, with the host arrays' `bytes`;
+    their copy to `device` is `tables.copy`."""
+    with runlog().stage("tables.host") as end:
+        arrays, to_device = _host_tables(index, group_ok, inline_ok)
+        end["bytes"] = _nbytes(arrays)
+    return to_device(device)
+
+
+def _host_tables(index: KmerIndex, group_ok: bool = True, inline_ok: bool = True):
+    """(the path's host arrays, the call that puts them on a device) of the
+    path device_tables takes. W <= 16 (and inline_ok): the group table
+    when allowed, the index has group entries, W <= 8 and placement fits;
+    else the mono table when placement fits; else the two-choice inline
+    bucket. Otherwise (W > 16, or any W without inline_ok, as a
+    feature-split mesh asks), when allowed and the index has group entries:
+    the gband tables when banding works and they place, else the groupcls
+    table when it places. Otherwise the monocls table when it places, else
+    the two-choice class-id bucket, each with the strict class bands where
+    every class fits one (`build_class_bands`, never at W <= 16), else with
+    `class_bits`."""
     W = index.bitset_words
     if inline_ok and W <= INLINE_BITS_MAX_WORDS:
         tables = None
@@ -1134,17 +1167,21 @@ def device_tables(index: KmerIndex, device, group_ok: bool = True, inline_ok: bo
             tables = build_mono_tables(index)
         if tables is None:
             tables = build_inline_tables(index)
-        return tables_from_reference(tables, device, owned=True)  # built for this call
+        return tables, partial(tables_from_reference, tables, owned=True)  # built for this call
     class_bits = index.class_bits.view(np.int32)
     if group_ok and index.has_pairs:
         gband = groupband_tables(index)
         if gband is not None:
-            return _gband_to_device(gband, W, device)
+            return gband, partial(_gband_to_device, gband, W)
         gcls = build_groupcls_tables(index)
         if gcls is not None:
-            return _class_tables_to_device(gcls, GROUPCLS_KEYS, class_bits, None, device)
+            return {**gcls, "class_bits": class_bits}, partial(
+                _class_tables_to_device, gcls, GROUPCLS_KEYS, class_bits, None)
     tables, keys = build_monocls_tables(index), MCLS_KEYS
     if tables is None:
         tables, keys = build_classes_tables(index), CLASSES_KEYS
     bands = build_class_bands(index)
-    return _class_tables_to_device(tables, keys, class_bits, bands[1] if bands else None, device)
+    bandrow = bands[1] if bands else None
+    shipped = {"class_bits": class_bits} if bandrow is None else {"class_bandrow": bandrow}
+    return {**{k: tables[k] for k in keys}, **shipped}, partial(
+        _class_tables_to_device, tables, keys, class_bits, bandrow)

@@ -11,7 +11,8 @@ nimble_tpu_torch keeps those prints and adds:
     trace). The pipeline's threads all write to it: each write takes a
     lock, so every line is one whole JSON record;
   * stage() — a timed stage of the run log (`stage_start`, then
-    `stage_end` with its `wall_s`), also a range of the profiler's trace;
+    `stage_end` with its `wall_s` and the fields its block adds, such as
+    `bytes`), also a range of the profiler's trace;
   * span() — a named span. The names of COUNTERS are counters: each span
     adds its elapsed time and one to its name's per-align total, from any
     thread, and `write_counters` puts the totals in the run log at the end
@@ -46,6 +47,8 @@ COUNTERS = {
     "pipeline.feed_wait": "nimble-feed",
     "pipeline.pack": "nimble-feed",
     "engine.collect": "nimble-emit",
+    "engine.d2h": "nimble-emit",
+    "engine.unpack": "nimble-emit",
     "pipeline.emit": "nimble-emit",
 }
 
@@ -188,13 +191,17 @@ class RunLog:
 
     @contextlib.contextmanager
     def stage(self, name: str, **fields: Any):
+        """A timed stage: `stage_start` with `fields`, then `stage_end`
+        with its `wall_s` and whatever the block put into the dict it is
+        given (a count known only at the end, such as `bytes`)."""
         self.event("stage_start", stage=name, **fields)
+        end = {}
         t0 = time.time()
         try:
             with span(name):
-                yield self
+                yield end
         finally:
-            self.event("stage_end", stage=name, wall_s=round(time.time() - t0, 4))
+            self.event("stage_end", stage=name, wall_s=round(time.time() - t0, 4), **end)
 
     def close(self) -> None:
         with self._lock:

@@ -187,7 +187,8 @@ def test_gband_sidecar_loads_in_both_packages(fam, tmp_path, monkeypatch, writer
 def test_device_tables_ship_only_the_gband_step(fam, tmp_path, monkeypatch):
     """The gband keys the step reads, the table re-laid as its page vector
     and band rows (`relayout_gband`, the run log's `gband_relayout` stage),
-    the reference's arrays otherwise."""
+    the reference's arrays otherwise; their build (`tables.host`) and copy
+    (`tables.copy`) stages before it."""
     from nimble_tpu_torch import observability
 
     _, _, _, ref_np, tables, index = fam
@@ -209,9 +210,11 @@ def test_device_tables_ship_only_the_gband_step(fam, tmp_path, monkeypatch):
     # `gband_sidecar` event, once per index)
     assert {e["event"] for e in events} - {"stage_start", "stage_end"} <= {"gband_sidecar"}
     events = [e for e in events if e["event"] in ("stage_start", "stage_end")]
-    assert [(e["event"], e["stage"]) for e in events] == [("stage_start", "gband_relayout"),
-                                                          ("stage_end", "gband_relayout")]
-    assert events[0]["bytes"] == table.nbytes and events[1]["wall_s"] >= 0
+    assert [(e["event"], e["stage"]) for e in events] == [
+        (kind, stage) for stage in ("tables.host", "tables.copy", "gband_relayout")
+        for kind in ("stage_start", "stage_end")]
+    assert events[4]["bytes"] == table.nbytes and events[5]["wall_s"] >= 0
+    assert events[3]["bytes"] == sum(ref_np[k].nbytes for k in TT.GBAND_KEYS)
 
 
 # --- the band intersection: plain version, Pallas, sequential fold ------

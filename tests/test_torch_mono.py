@@ -168,9 +168,10 @@ def test_relayout_mono_is_slot_major_and_inverts(monkeypatch, W, S, rows, block)
 @pytest.mark.parametrize("owned", [False, True])
 def test_relayout_is_a_run_log_stage_and_copies_only_a_callers_table(libs, monkeypatch, tmp_path, owned):
     """tables_from_reference re-lays the mono table as the run log's
-    `mono_relayout` stage. On the CPU it re-lays a copy of the caller's
-    array, unless the arrays are its own to change (owned), as
-    device_tables' fresh build is: that one it re-lays in place."""
+    `mono_relayout` stage, after their `tables.copy` stage. On the CPU it
+    re-lays a copy of the caller's array, unless the arrays are its own to
+    change (owned), as device_tables' fresh build is: that one it re-lays
+    in place."""
     from nimble_tpu_torch import observability
     from nimble_tpu_torch.align import tables as TT
 
@@ -184,9 +185,11 @@ def test_relayout_is_a_run_log_stage_and_copies_only_a_callers_table(libs, monke
     assert np.array_equal(built["mono_bucket"], dev["mono_bucket"].numpy() if owned else ref["mono_bucket"])
     assert np.array_equal(planar_mono(dev["mono_bucket"], LIBS_W["w2"]).numpy(), ref["mono_bucket"])
     events = [json.loads(ln) for ln in (tmp_path / "run.jsonl").read_text().splitlines()]
-    assert [(e["event"], e["stage"]) for e in events] == [("stage_start", "mono_relayout"),
+    assert [(e["event"], e["stage"]) for e in events] == [("stage_start", "tables.copy"),
+                                                          ("stage_end", "tables.copy"),
+                                                          ("stage_start", "mono_relayout"),
                                                           ("stage_end", "mono_relayout")]
-    assert events[0]["bytes"] == ref["mono_bucket"].nbytes and events[1]["wall_s"] >= 0
+    assert events[2]["bytes"] == ref["mono_bucket"].nbytes and events[3]["wall_s"] >= 0
     seen = []
     monkeypatch.setattr(TT, "build_mono_tables", lambda index: seen.append(build_mono_tables(index)) or seen[-1])
     dev = TT.device_tables(port_index, CPU)

@@ -9,7 +9,9 @@ range of the program opens without NIMBLE_TPU_PROFILE, even under another
 profiler; with it, the trace holds the spans of the pipeline's threads and
 the engine's stages, on the run log's clock, and the TSV is the golden's
 either way. `trace_summary` reads such a trace. A span costs under 1 us
-without a profiler."""
+without a profiler. Inside `engine_build` the tables' host build and their
+copy are stages of their own with their bytes; `align_done` carries the
+bytes of the wire."""
 import json
 import os
 import shutil
@@ -162,6 +164,36 @@ def test_align_writes_every_counter_once(inputs, tmp_path, monkeypatch, capsys):
     assert not any(e["event"] == "throughput" for e in events)
 
 
+def check_table_stages_and_wire(events, reads: int, W: int) -> None:
+    """One `tables.host` and one `tables.copy` stage_end inside the one
+    `engine_build`, each with bytes; one `engine.d2h` and one
+    `engine.unpack` counter total; `align_done`'s `wire_bytes` the full
+    wire's flat size, (W + 3) words a read of every chunk."""
+    kinds = [(e["event"], e.get("stage")) for e in events]
+    start, end = kinds.index(("stage_start", "engine_build")), kinds.index(("stage_end", "engine_build"))
+    for name in ("tables.host", "tables.copy"):
+        ends = [i for i, k in enumerate(kinds) if k == ("stage_end", name)]
+        assert len(ends) == 1 and start < ends[0] < end, name
+        assert events[ends[0]]["bytes"] > 0, name
+    for name in ("engine.d2h", "engine.unpack"):
+        got = [e for e in events if e["event"] == "stage_end" and e["stage"] == name]
+        assert len(got) == 1 and got[0]["thread"] == "nimble-emit" and got[0]["count"] >= 1, name
+    chunk = next(e["chunk_size"] for e in events if e["event"] == "engine")
+    done = next(e for e in events if e["event"] == "align_done")
+    assert done["wire_bytes"] == -(-reads // chunk) * chunk * (W + 3) * 4
+
+
+def test_align_stages_the_tables_and_counts_the_wire(inputs, tmp_path, monkeypatch, capsys):
+    _, events = align(inputs, tmp_path, "wire", monkeypatch)
+    assert [e["path"] for e in events if e["event"] == "engine"] == ["group"]
+    _, data = json.loads((inputs / "lib_base.json").read_text())
+    n_features = len(dict(zip(data["headers"], data["columns"]))["sequence_name"])
+    check_table_stages_and_wire(events, 19, -(-n_features // 32))
+    host, copy = ([e for e in events if e.get("stage") == s and e["event"] == "stage_end"][0]
+                  for s in ("tables.host", "tables.copy"))
+    assert host["bytes"] == copy["bytes"]  # the group path ships every array it builds
+
+
 def test_no_profile_opens_no_range(inputs, tmp_path, monkeypatch, capsys):
     import torch.autograd.profiler
     import torch.profiler
@@ -306,7 +338,7 @@ def test_span_costs_under_a_microsecond_without_a_profiler():
         return ((t1 - t0) - (t2 - t1)) / n
 
     assert not obs._PROFILING and not torch.autograd._profiler_enabled()
-    for name in ("pipeline.pack", "engine.keys"):
+    for name in ("pipeline.pack", "engine.keys", "engine.d2h", "engine.unpack"):
         cost = statistics.median(one_round(name) for _ in range(301))
         assert cost <= 1000, (name, cost)
     obs.reset_counters()
