@@ -127,10 +127,41 @@ def resolve_features_compact(
     per unique class, keep mask per unique class, inverse map read ->
     class)."""
     uniq, inverse = _unique_rows(bits)
-    member = decode_bitsets(uniq, index.n_features)
-    rows, cols = np.nonzero(member)
-    u = member.shape[0]
-    return _resolve_classes_from_cols(index, u, rows, cols, emit, inverse)
+    rows, cols = _set_bits(uniq, _size_cap(emit))
+    inside = cols < index.n_features  # last-word padding bits, if any
+    return _resolve_classes_from_cols(index, uniq.shape[0], rows[inside], cols[inside], emit, inverse)
+
+
+_POPCOUNT8 = np.array([bin(i).count("1") for i in range(256)], dtype=np.int64)
+
+
+def _size_cap(emit: EmitConfig) -> Optional[int]:
+    """The most features a class may hold and pass the set-size filters;
+    None under group_on, where they count the class's groups."""
+    if emit.group_on:
+        return None
+    cap = emit.max_hits_to_report
+    if emit.discard_multiple_matches:
+        cap = min(cap, 1)
+    if emit.discard_multi_hits > 0:
+        cap = min(cap, emit.discard_multi_hits)
+    return cap
+
+
+def _set_bits(words: np.ndarray, cap: Optional[int]) -> Tuple[np.ndarray, np.ndarray]:
+    """(row, bit position) of every set bit of (n, w) 32-bit words, in row
+    then position order, as np.nonzero of the decoded bitsets gives them.
+    Only the nonzero words are expanded, and none of a row with more than
+    `cap` set bits: such a row comes out empty, as the filters would drop
+    its class."""
+    r, w = np.nonzero(words)
+    v = words[r, w].astype(np.uint32)
+    if cap is not None:
+        count = np.bincount(r, _POPCOUNT8[v.view(np.uint8)].reshape(-1, 4).sum(axis=1), words.shape[0])
+        small = count[r] <= cap
+        r, w, v = r[small], w[small], v[small]
+    j, b = np.nonzero((v[:, None] >> np.arange(32, dtype=np.uint32)) & 1)
+    return r[j], w[j] * 32 + b
 
 
 def _resolve_classes_from_cols(
@@ -187,15 +218,10 @@ def resolve_features_band(index: KmerIndex, band_rows: np.ndarray, Pw: int, emit
     (n, 1 + 2 Pw) band rows [page | band] without expanding them to W
     words: feature id = page * Pw * 32 + the bit's position in the band."""
     uniq, inverse = _unique_rows(band_rows)
-    u = uniq.shape[0]
-    u8 = np.ascontiguousarray(uniq[:, 1:], dtype="<i4").view(np.uint8)
-    expanded = np.unpackbits(u8.reshape(u, -1), axis=1, bitorder="little")
-    rows, bitpos = np.nonzero(expanded)
+    rows, bitpos = _set_bits(uniq[:, 1:], _size_cap(emit))
     cols = (uniq[rows, 0].astype(np.int64) * (Pw * 32) + bitpos).astype(np.int32)
-    tail = cols >= index.n_features  # last-word padding bits, if any
-    if tail.any():
-        rows, cols = rows[~tail], cols[~tail]
-    return _resolve_classes_from_cols(index, u, rows, cols, emit, inverse)
+    inside = cols < index.n_features  # last-word padding bits, if any
+    return _resolve_classes_from_cols(index, uniq.shape[0], rows[inside], cols[inside], emit, inverse)
 
 
 def resolve_features_ids(index: KmerIndex, ids: np.ndarray, emit: EmitConfig):
@@ -248,6 +274,15 @@ def resolve_features(index: KmerIndex, bits: np.ndarray, emit: EmitConfig):
     return [_feature_str(u_features, j) for j in inverse], u_keep[inverse]
 
 
+def _at_rows(col, rows: np.ndarray):
+    """An optional per-read column (a list or an array) at rows."""
+    if col is None:
+        return None
+    if isinstance(col, np.ndarray):
+        return col[rows]
+    return [col[i] for i in rows]
+
+
 def trimmed_lens(lens: np.ndarray, trim: Tuple[int, float]) -> np.ndarray:
     """pipeline.py:trimmed_lens — a read's 3' overhang beyond the target
     length is cut by round(strictness * overhang) bases (strictness 1.0 is
@@ -274,6 +309,7 @@ class LibraryRunner:
     # then names this process's headerless shard file)
     _file: object = None
     rows_written: int = 0
+    resolved_rows: int = 0  # rows handed to the class resolver (the run log's `align_done`)
 
     def open(self, header: bool = True):
         self._file = open(self.output_path, "wb")
@@ -287,31 +323,40 @@ class LibraryRunner:
 
     def emit_out(self, out, batch) -> int:
         """Append this library's passing rows from host-numpy outputs (rows
-        formatted natively when the native library is available)."""
+        formatted natively when the native library is available).
+
+        Only the rows with `pass_` (as the short-read patch left it) are
+        resolved: a row's feature string and keep verdict depend on its own
+        class alone, so the others' classes would be thrown away."""
         if out is None:
             return 0
-        pass_ = out["pass_"]
-        if out.get("ids") is not None:
-            u_features, u_keep, inverse = resolve_features_ids(self.index, out["ids"], self.emit)
-        elif out.get("band_rows") is not None:
-            u_features, u_keep, inverse = resolve_features_band(
-                self.index, out["band_rows"], out["band_meta"][0], self.emit
-            )
-        else:
-            u_features, u_keep, inverse = resolve_features_compact(
-                self.index, out["bits"], self.emit
-            )
-        keep = u_keep[inverse] & pass_
-        n_kept = int(np.count_nonzero(keep))
-        if n_kept == 0:
+        sel = np.flatnonzero(out["pass_"])
+        if sel.size == 0:
             return 0
-        cbs = batch.get("cbs")
-        umis = batch.get("umis")
-        poss = batch.get("poss")
-        gns = batch.get("gns")
-        score = out["score"]
-        f1 = out["r1_fwd"]
-        f2 = out["r2_fwd"]
+        with obs.span("pipeline.resolve"):
+            if out.get("ids") is not None:
+                u_features, u_keep, inverse = resolve_features_ids(self.index, out["ids"][sel], self.emit)
+            elif out.get("band_rows") is not None:
+                u_features, u_keep, inverse = resolve_features_band(
+                    self.index, out["band_rows"][sel], out["band_meta"][0], self.emit
+                )
+            else:
+                u_features, u_keep, inverse = resolve_features_compact(
+                    self.index, out["bits"][sel], self.emit
+                )
+        self.resolved_rows += sel.size
+        keep = u_keep[inverse]
+        rows = sel[keep]  # the chunk's rows to write, in read order
+        if rows.size == 0:
+            return 0
+        inverse = inverse[keep]
+        cbs = _at_rows(batch.get("cbs"), rows)
+        umis = _at_rows(batch.get("umis"), rows)
+        poss = _at_rows(batch.get("poss"), rows)
+        gns = _at_rows(batch.get("gns"), rows)
+        score = out["score"][rows]
+        f1 = out["r1_fwd"][rows]
+        f2 = out["r2_fwd"][rows]
 
         from nimble_tpu_torch.io import native
 
@@ -321,7 +366,7 @@ class LibraryRunner:
             )
             buf = native.format_rows(
                 inverse,
-                keep,
+                np.ones(rows.size, dtype=bool),
                 u_features,
                 score,
                 f1,
@@ -333,11 +378,11 @@ class LibraryRunner:
                 pos2=pos_arr[:, 1] if pos_arr is not None else None,
             )
             self._file.write(buf)
-            self.rows_written += n_kept
-            return n_kept
+            self.rows_written += rows.size
+            return rows.size
 
         lines = []
-        for i in np.nonzero(keep)[0]:
+        for i in range(rows.size):
             cb = cbs[i] if cbs is not None else ""
             umi = umis[i] if umis is not None else ""
             pos1, pos2 = poss[i] if poss is not None else ("", "")
@@ -1325,7 +1370,8 @@ def _align_run(reference: str, output: str, inputs: Sequence[str], device: torch
         log.event("resume", reads_done=reads_done, fast_forward_s=fast_forward_s[0])
     wall = obs.counter_totals()["align"][0]
     log.event("align_done", total=total, reads=aligned, wall_s=round(wall, 3),
-              reads_per_s=round(aligned / wall, 1) if wall > 0 else 0.0, wire_bytes=wire[0])
+              reads_per_s=round(aligned / wall, 1) if wall > 0 else 0.0, wire_bytes=wire[0],
+              resolved_rows=sum(r.resolved_rows for r in runners))
     rstats = getattr(reader_obj, "stats", None)
     if rstats and rstats.get("skipped_records"):
         log.event("decode_shard", **rstats)

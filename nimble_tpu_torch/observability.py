@@ -50,6 +50,7 @@ COUNTERS = {
     "engine.d2h": "nimble-emit",
     "engine.unpack": "nimble-emit",
     "pipeline.emit": "nimble-emit",
+    "pipeline.resolve": "nimble-emit",
 }
 
 _PROFILING = False  # set by profile() alone: no range opens under another profiler

@@ -11,7 +11,7 @@ the engine's stages, on the run log's clock, and the TSV is the golden's
 either way. `trace_summary` reads such a trace. A span costs under 1 us
 without a profiler. Inside `engine_build` the tables' host build and their
 copy are stages of their own with their bytes; `align_done` carries the
-bytes of the wire."""
+bytes of the wire and the rows the emission resolved."""
 import json
 import os
 import shutil
@@ -153,7 +153,7 @@ def test_align_writes_every_counter_once(inputs, tmp_path, monkeypatch, capsys):
     assert [e["stage"] for e in events if e["event"] == "stage_end"].count("pipeline.pack") == 1
     assert all(got[n]["thread"] == obs.COUNTERS[n] and got[n]["wall_s"] >= 0 for n in got)
     for name in ("align", "engine.submit", "pipeline.pack", "pipeline.read", "pipeline.parse",
-                 "engine.collect", "pipeline.emit", "pipeline.first_batch", "pipeline.starved"):
+                 "engine.collect", "pipeline.emit", "pipeline.resolve", "pipeline.first_batch", "pipeline.starved"):
         assert got[name]["count"] >= 1, name
     stages = [e["stage"] for e in events if e["event"] == "stage_end"]
     assert stages.count("index_build") == 1 and stages.count("engine_build") == 1
@@ -192,6 +192,21 @@ def test_align_stages_the_tables_and_counts_the_wire(inputs, tmp_path, monkeypat
     host, copy = ([e for e in events if e.get("stage") == s and e["event"] == "stage_end"][0]
                   for s in ("tables.host", "tables.copy"))
     assert host["bytes"] == copy["bytes"]  # the group path ships every array it builds
+
+
+def test_align_counts_the_resolve_of_the_passing_rows(inputs, tmp_path, monkeypatch, capsys):
+    """`pipeline.resolve`, the emission thread's resolve of a span's
+    passing rows, is a counter of `nimble-emit` inside `pipeline.emit`;
+    `align_done`'s `resolved_rows` counts the rows it was handed: at least
+    the rows written, at most the reads."""
+    assert obs.COUNTERS["pipeline.resolve"] == "nimble-emit"
+    tsv, events = align(inputs, tmp_path, "resolve", monkeypatch)
+    assert tsv == (GOLD / "golden_base.tsv").read_bytes()
+    got = totals(events)
+    assert got["pipeline.resolve"]["count"] >= 1
+    assert got["pipeline.resolve"]["wall_s"] <= got["pipeline.emit"]["wall_s"]
+    done = next(e for e in events if e["event"] == "align_done")
+    assert 0 < tsv.count(b"\n") - 1 <= done["resolved_rows"] <= done["reads"]
 
 
 def test_no_profile_opens_no_range(inputs, tmp_path, monkeypatch, capsys):
@@ -254,7 +269,7 @@ def test_trace_summary_names_the_threads(profiled):
     got = trace_summary.summarize(trace, events)
     threads = got["threads"]
     assert "pipeline.pack" in threads["nimble-feed"] and "pipeline.read" in threads["nimble-read"]
-    assert "pipeline.emit" in threads["nimble-emit"] and "engine.collect" in threads["nimble-emit"]
+    assert {"pipeline.emit", "pipeline.resolve", "engine.collect"} <= set(threads["nimble-emit"])
     main = next(t for t in threads.values() if "align" in t)
     assert main["align"][1] == 1 and main["engine.submit"][1] >= 1
     assert {s["stage"] for s in got["stamps"]} >= {"index_build", "engine_build"}
