@@ -4,9 +4,9 @@
 Drives every align path of the port — `align` on the default group probe
 and on the mono probe (`--probe mono`, `num_mismatches` 1) against narrow
 libraries; on the wide banded group path (gband) against the 20k-allele
-HLA/KIR library; and on the other wide paths (monocls with class bands or
-class bits, groupcls, the wide two-choice probe); and three libraries at
-once through the stacked engine — and every other subcommand and flag
+HLA/KIR library; on the other wide paths (monocls with class bands or
+class bits, groupcls, the wide two-choice probe); and three libraries in
+one `align`, one engine each — and every other subcommand and flag
 (`index --warm`, `report --device` and `--distributed`, resumes, worlds,
 the profiler, `align --mesh` and the coordinated world) on one CUDA card,
 after building and checking their kernels:
@@ -116,26 +116,15 @@ after building and checking their kernels:
      differ in at most 2 x near_ties count rows; the two `--device` runs
      of (b) must give the same bytes and near_ties; `--stream` must equal
      the host report.
- 19. the stacked engine (align/stacked.py: one merged probe answers every
-     library) on bench_data.write_stacked's workload, scripts/stackscale.py's
-     three libraries with 100 alleles each (W_cat = 12, k = 21): (a) the
-     stacked engine `align` builds on the group stack and on the mono stack
-     (`--probe mono`), kmer_keys (both) and mono_probe (the mono stack, S =
-     2, W = 12) == their plain versions exactly at the arguments the engine
-     passes them for the first chunk of the reads, timed; mono_probe at
-     S = 2 on the stack's table with its stash filled to 64 rows and on
-     synthetic tables at W = 12, 47 and 64 with a full 64-row stash (33 KB
-     of shared memory at W = 64), timed; one stacked step by stage (window,
-     merged probe, the three libraries' tails, pack;
-     kernel_bench.stacked_stages); (b) 262,144 single-end reads through
-     `align` stacked (NIMBLE_TPU_STACK=1) and by default (one engine per
-     library, each on the group path), every library's TSV byte-identical,
-     both walls; (c) the same under `--probe mono` (the separate engines on
-     the mono path); (d) 65,536 10x-shaped pairs through fastq-to-bam ->
-     stacked and separate `align` (byte-identical) -> `report`; (e)
-     16,384 reads on cuda against cpu on both stacks, byte-identical. Each
-     run must take its path (stacked, or one engine per library on the
-     unstacked path) and launch its kernels.
+ 19. several libraries in one `align`, one engine per library, on
+     bench_data.write_stacked's workload (scripts/stackscale.py's three
+     libraries with 100 alleles each): (a) 262,144 single-end reads on the
+     group path, (b) the same under `--probe mono`, (c) 65,536 10x-shaped
+     pairs through fastq-to-bam -> align -> report. Each run's three
+     `engine` events must name its path and its kernels must launch, and
+     every library's TSV must equal that library aligned alone on the card,
+     byte for byte; (d) 16,384 reads of the three libraries on cuda against
+     cpu on both paths, byte-identical.
  20. `align --resume` and multi-process worlds (NIMBLE_TPU_NUM_PROCS /
      NIMBLE_TPU_PROC_ID), each output byte-identical to the uninterrupted
      run of an earlier phase: (a) phase 5's 1,048,576 reads, the run killed
@@ -323,17 +312,12 @@ NO_GROUP = {"NIMBLE_TPU_NO_GROUP_PROBE": "1"}
 N_REPORT_ROWS = 262_144
 N_REPORT_WIDE = 262_144
 
-# the stacked engine (phase 19): bench_data.write_stacked's three libraries;
-# reads and pairs cut to half for the same reason as the report's
-N_STACK_READS = 262_144
-N_STACK_PAIRS = 65_536
-N_STACK_CMP = 16_384
-# mono_probe at S = 2 on synthetic tables: these W (W_cat of the workload,
-# of a W = 47 library beside narrow ones, STACK_MAX_WORDS), at the main
-# path's P
-STACK_SYNTH_W = (12, 47, 64)
-STACK_SYNTH_B = 8_192
-STACK_SYNTH_P = 92
+# several libraries in one `align` (phase 19): bench_data.write_stacked's
+# three libraries; reads and pairs cut to half for the same reason as the
+# report's
+N_MULTI_READS = 262_144
+N_MULTI_PAIRS = 65_536
+N_MULTI_CMP = 16_384
 
 # `align --resume` and worlds (phase 20): the mono cut of (f), and how many
 # spans a killed run emits before os._exit(9): (a) and (f) single runs, (c)
@@ -612,12 +596,13 @@ def phase_goldens(work: str):
         f"({len(cases) - len(MONO_GOLDENS)} group path, {len(MONO_GOLDENS)} mono path)")
 
 
-def drive(label: str, args, n: int, kernels, lo: float = 0.3, path: str = ""):
+def drive(label: str, args, n: int, kernels, lo: float = 0.3, path: str = "", n_engines: int = 0):
     """One main-path run: zero every kernel's launch count, run `align` on
     cuda, read the counts. Fails unless each kernel of the path launched,
-    every engine took `path` (when given; the run log's `engine` events) and
-    the pass rate (TSV rows per read or pair) lies in (lo, 1]. Returns
-    (wall s, rows, counts)."""
+    every engine took `path` (when given; the run log's `engine` events),
+    the run built `n_engines` engines (when given) and the pass rate (TSV
+    rows per read or pair) lies in (lo, 1]. Returns (wall s, rows,
+    counts)."""
     from nimble_tpu_torch.align import kernels as K
 
     wrappers = {"kmer_keys": K.kmer_keys, "mono_probe": K.mono_probe,
@@ -640,6 +625,8 @@ def drive(label: str, args, n: int, kernels, lo: float = 0.3, path: str = ""):
     engine = engines[-1]
     if path and any(e["path"] != path for e in engines):
         raise AssertionError(f"{label}: the engines took the {[e['path'] for e in engines]} paths, not {path}")
+    if n_engines and len(engines) != n_engines:
+        raise AssertionError(f"{label}: {len(engines)} engine events, not {n_engines}")
     counts = {name: w.launches for name, w in wrappers.items()}
     for name in kernels:
         if counts[name] <= 0:
@@ -1760,134 +1747,76 @@ def phase_report(work: str, pout: str):
     return {"(b)": b_runs, "(c)": runs}
 
 
-def phase_stacked_data(work: str):
-    """The stacked workload (bench_data.write_stacked): three libraries of
-    100 alleles, N_STACK_READS single-end reads round-robin from them, their
-    first N_STACK_CMP, N_STACK_PAIRS 10x-shaped pairs as a tagged BAM; each
-    library's index for the group probe and for `--probe mono`."""
+def phase_multi_data(work: str):
+    """The multi-library workload (bench_data.write_stacked): three
+    libraries of 100 alleles, N_MULTI_READS single-end reads round-robin
+    from them, their first N_MULTI_CMP, N_MULTI_PAIRS 10x-shaped pairs as a
+    tagged BAM; each library's index for the group probe and for `--probe
+    mono`."""
     from nimble_tpu_torch import bench_data
 
-    d = os.path.join(work, "stacked")
+    d = os.path.join(work, "multi")
     t0 = time.perf_counter()
-    libs, fq, (r1, r2, whitelist) = bench_data.write_stacked(d, N_STACK_READS, N_STACK_PAIRS)
-    cmp_fq = gz_head(fq, os.path.join(d, f"stacked_cmp_{N_STACK_CMP}.fastq.gz"), N_STACK_CMP)
-    say("stacked", f"generated {len(libs)} libraries x {bench_data.N_ALLELES} alleles, {N_STACK_READS} reads and "
-        f"{N_STACK_PAIRS} pairs in {time.perf_counter() - t0:.1f} s")
+    libs, fq, (r1, r2, whitelist) = bench_data.write_stacked(d, N_MULTI_READS, N_MULTI_PAIRS)
+    cmp_fq = gz_head(fq, os.path.join(d, f"multi_cmp_{N_MULTI_CMP}.fastq.gz"), N_MULTI_CMP)
+    say("multi", f"generated {len(libs)} libraries x {bench_data.N_ALLELES} alleles, {N_MULTI_READS} reads and "
+        f"{N_MULTI_PAIRS} pairs in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     bam = os.path.join(d, "tagged.bam")
-    cores = str(os.cpu_count() or 1)
-    cli(["fastq-to-bam", "--r1-fastq", r1, "--r2-fastq", r2, "--map", whitelist, "--output", bam, "-c", cores])
-    say("stacked", f"fastq-to-bam {N_STACK_PAIRS} pairs: {time.perf_counter() - t0:.2f} s")
+    cli(["fastq-to-bam", "--r1-fastq", r1, "--r2-fastq", r2, "--map", whitelist, "--output", bam,
+         "-c", str(os.cpu_count() or 1)])
+    say("multi", f"fastq-to-bam {N_MULTI_PAIRS} pairs: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     for lib in libs:
         cli(["index", "--reference", lib])
         cli(["index", "--reference", lib, *MONO])
-    say("stacked", f"group and mono indexes of the {len(libs)} libraries built in {time.perf_counter() - t0:.2f} s")
+    say("multi", f"group and mono indexes of the {len(libs)} libraries built in {time.perf_counter() - t0:.2f} s")
     return ",".join(libs), fq, cmp_fq, bam
 
 
-def phase_stacked_kernels(ref: str, fq: str):
-    """Phase 19 (a): the stacked engine that `align` builds on each stack;
-    kmer_keys (both stacks) and mono_probe (the mono stack, S = 2, W =
-    W_cat) against their plain versions at the arguments the engine passes
-    them for the first chunk of the reads, timed; mono_probe at S = 2 on
-    synthetic tables at W in STACK_SYNTH_W with a full 64-row stash, and on
-    the stack's own table with its stash filled to 64 rows; one stacked
-    step by stage (kernel_bench.stacked_stages). Returns the max |diff|."""
-    from nimble_tpu_torch import kernel_bench as KB
-    from nimble_tpu_torch.align import kernels as K
-
-    libs = ref.split(",")
-    errs = []
-    for probe, group_g in (("group", None), ("mono", 0)):
-        eng = KB.stacked_engine(libs, group_g)
-        want = f"stacked-{probe}"
-        if eng.path != want:
-            raise AssertionError(f"the stacked engine took {eng.path}, not {want}")
-        W = int(eng.seg_words[-1])
-        say("stacked", f"{want} engine: seg_words {eng.seg_words}, chunk {eng.chunk_size}, tables "
-            f"{eng.table_bytes / 1e6:.1f} MB ({', '.join(f'{k} {tuple(v.shape)}' for k, v in eng.tables.items())})")
-        codes, lens = KB.fastq_head(fq, eng.chunk_size, eng.max_len)
-        kargs = KB.captured(eng, codes, lens, "kmer_keys")
-        errs.append(check_kmer(f"{want} (the first chunk)", *kargs))
-        ms = KB.device_ms(lambda: K.kmer_keys(*kargs))
-        plain = cuda_ms(lambda: K.kmer_keys_reference(*kargs))
-        bound = KB.bound_ms(KB.kernel_bytes("kmer_keys", kargs))
-        say("stacked", f"kmer_keys B={kargs[0].shape[0]} L={kargs[0].shape[1]} k={kargs[2]} n_buckets={kargs[3]} "
-            f"({want}'s first chunk): all 7 planes equal the plain version; kernel {ms:.4f} ms on the card "
-            f"(CUDA graph, median of 25), bound {bound:.4f} ms, share {bound / ms:.3f}; plain {plain:.4f} ms")
-        if probe == "mono":
-            margs = KB.captured(eng, codes, lens, "mono_probe")
-            bucket, stash = margs[0], margs[7]
-            planes, err = check_mono(f"{want} (the first chunk)", bucket, stash, W, planes=margs[1:7])
-            errs.append(err)
-            time_mono(f"{want}, S=2 W={W} (the first chunk)", margs)
-            full_bucket, full_stash = _full_stash(bucket, stash, planes, W)
-            if full_stash.shape[0] != K.MONO_MAX_STASH:
-                raise AssertionError(f"the stacked full-stash table holds {full_stash.shape[0]} stash rows")
-            errs.append(check_mono(f"{want} with its stash filled to 64 rows", full_bucket, full_stash, W,
-                                   planes=planes)[1])
-            for sW in STACK_SYNTH_W:
-                sb, ss, sp = synthetic_planes(STACK_SYNTH_B, STACK_SYNTH_P, sW, 2, K.MONO_MAX_STASH, seed=sW)
-                errs.append(check_mono(f"synthetic, S=2 W={sW}, full stash", sb, ss, sW, planes=sp)[1])
-                time_mono(f"synthetic, S=2 W={sW}, full 64-row stash", (sb, *sp, ss, sW))
-            del full_bucket, full_stash
-        dev = torch.device("cuda")
-        c, ln = torch.from_numpy(codes).to(dev), torch.from_numpy(lens).to(dev)
-        st = KB.stage_ms(KB.stacked_stages(eng, c, ln))
-        total = sum(v for k, v in st.items() if k != "step")
-        say("stacked", f"{want}, one step by stage, B={c.shape[0]} L={c.shape[1]}, {len(libs)} libraries "
-            "(CUDA events, the card idle before each stage, median of 5): "
-            + ", ".join(f"{k} {v:.3f} ms" for k, v in st.items())
-            + f"; the merged probe is {st['merged probe'] / total:.3f} and the tails "
-            f"{st['tails'] / total:.3f} of the stages' sum")
-        del eng
-    torch.cuda.empty_cache()
-    return max(errs)
-
-
-def phase_stacked(work: str, ref: str, fq: str, cmp_fq: str, bam: str):
-    """Phase 19 (b)-(e): the stacked engine through `align` on cuda
-    (NIMBLE_TPU_STACK=1), each run against the same run by default (one
-    unstacked engine per library, each on the path named beside the
-    stacked one), every library's TSV byte for byte: (b) the group stack on the
-    single-end reads, (c) the mono stack (`--probe mono`), (d) the 10x
-    pairs' tagged BAM, then `report` of each library; (e) N_STACK_CMP reads
-    on cuda against cpu on both stacks. Returns the summed launch counts of
-    the stacked runs."""
+def phase_multi(work: str, ref: str, fq: str, cmp_fq: str, bam: str):
+    """Phase 19: the three libraries in one `align` on cuda, one engine per
+    library (three `engine` events, each on the path named), every
+    library's TSV byte for byte against that library aligned alone on
+    cuda: (a) the single-end reads on the group path, (b) the same under
+    `--probe mono`, (c) the 10x pairs' tagged BAM, then `report` of each
+    library; (d) N_MULTI_CMP reads on cuda against cpu on both paths.
+    Returns the summed launch counts of the three-library runs."""
     cores = str(os.cpu_count() or 1)
-    base = os.path.join(work, "stacked")
+    base = os.path.join(work, "multi")
+    libs = ref.split(",")
     counts = []
-    for tag, inputs, n, flags, paths, kernels in (
-            ("(b) single-end reads", [fq], N_STACK_READS, [], ("stacked-group", "group"), ["kmer_keys"]),
-            ("(c) single-end reads, --probe mono", [fq], N_STACK_READS, MONO, ("stacked-mono", "mono"),
-             ["kmer_keys", "mono_probe"]),
-            ("(d) 10x pairs (tagged BAM)", [bam], N_STACK_PAIRS, [], ("stacked-group", "group"), ["kmer_keys"])):
+    for tag, inputs, n, flags, path, kernels in (
+            ("(a) single-end reads", [fq], N_MULTI_READS, [], "group", ["kmer_keys"]),
+            ("(b) single-end reads, --probe mono", [fq], N_MULTI_READS, MONO, "mono", ["kmer_keys", "mono_probe"]),
+            ("(c) 10x pairs (tagged BAM)", [bam], N_MULTI_PAIRS, [], "group", ["kmer_keys"])):
         name = re.sub(r"[^a-z0-9]+", "_", tag.lower()).strip("_")
-        outs = {}
-        walls = {}
-        for mode, path in zip(("stacked", "separate"), paths):
-            outs[mode] = os.path.join(base, f"{name}.{mode}.tsv")
-            args = ["--reference", ref, "--output", outs[mode], "--input", *inputs, "-c", cores, *flags]
-            with environ({"NIMBLE_TPU_STACK": "1" if mode == "stacked" else ""}):
-                wall, _, c = drive(f"{tag}, {mode}", args, n, kernels, path=path)
-            walls[mode] = wall
-            if mode == "stacked":
-                counts.append(c)
-        rows = same_bytes(f"{tag}: stacked against separate", outs["stacked"], outs["separate"], ref)
-        say("stacked", f"{tag}: every library's TSV stacked == separate ({rows} rows); wall stacked "
-            f"{walls['stacked']:.2f} s, separate {walls['separate']:.2f} s ({walls['separate'] / walls['stacked']:.2f}x)")
-        if tag.startswith("(d)"):
+        out = os.path.join(base, f"{name}.tsv")
+        args = ["--input", *inputs, "-c", cores, *flags]
+        wall, rows, c = drive(f"{tag}, {len(libs)} libraries", ["--reference", ref, "--output", out, *args], n,
+                              kernels, path=path, n_engines=len(libs))
+        counts.append(c)
+        alone = 0.0
+        for lib, got in zip(libs, lib_outputs(out, ref)):
+            lib_name = os.path.splitext(os.path.basename(lib))[0]
+            want = os.path.join(base, f"{name}.alone.{lib_name}.tsv")
+            # a third of the reads come from each library
+            w, _, _ = drive(f"{tag}, {lib_name} alone", ["--reference", lib, "--output", want, *args], n, kernels,
+                            lo=0.1, path=path, n_engines=1)
+            alone += w
+            same_bytes(f"{tag}: {lib_name} beside the others against alone", got, want, lib)
+        say("multi", f"{tag}: every library's TSV == that library aligned alone ({rows} rows); wall "
+            f"{wall:.2f} s, the three alone {alone:.2f} s summed")
+        if tag.startswith("(c)"):
             t0 = time.perf_counter()
-            for out in lib_outputs(outs["stacked"], ref):
-                counts_tsv = out + ".counts"
-                cli(["report", "-i", out, "-o", counts_tsv])
+            for got in lib_outputs(out, ref):
+                counts_tsv = got + ".counts"
+                cli(["report", "-i", got, "-o", counts_tsv])
                 if os.path.getsize(counts_tsv) == 0:
-                    raise AssertionError(f"report wrote an empty count matrix for {os.path.basename(out)}")
-            say("stacked", f"(d) report of each library's TSV: {time.perf_counter() - t0:.2f} s")
-    with environ({"NIMBLE_TPU_STACK": "1"}):
-        for flags, label in (([], "stacked-group"), (MONO, "stacked-mono")):
-            compare_devices(f"(e) {label}", ref, cmp_fq, flags, N_STACK_CMP, path=label)
+                    raise AssertionError(f"report wrote an empty count matrix for {os.path.basename(got)}")
+            say("multi", f"(c) report of each library's TSV: {time.perf_counter() - t0:.2f} s")
+    for flags, path in (([], "group"), (MONO, "mono")):
+        compare_devices(f"(d) three libraries, {path}", ref, cmp_fq, flags, N_MULTI_CMP, path=path)
     return {k: sum(c[k] for c in counts) for k in counts[0]}
 
 
@@ -2314,8 +2243,9 @@ def phase_profile(work: str, lib: str, fq: str):
     NIMBLE_TPU_PROFILE; the trace must name the kmer_keys kernel (the
     symbol csrc/kmer_keys.cu launches), hold the feeder's and the emission
     thread's spans and the engine's stage ranges with the kmer_keys kernel
-    under `engine.keys` (trace_summary), with the run log's stage stamps
-    within 1 ms of their ranges, and the TSV must equal the unprofiled
+    under `engine.keys` (trace_summary), with each range of a stage of the
+    run log starting between its stamps (`t_ns`, `open_ns`; 1 ms of slack),
+    and the TSV must equal the unprofiled
     run's. Returns the launch counts of both runs."""
     from nimble_tpu_torch import trace_summary
 
@@ -2686,9 +2616,7 @@ def main(argv=None) -> int:
         cls_err, cls_bands, (cls_inters, ic_synth_err), cls_counts = phase_cls_paths(work, wlib, wfq, wr1, wr2,
                                                                                      wcmp)
         reports = phase_report(work, pout)
-        sref, sfq, scmp, sbam = phase_stacked_data(work)
-        st_err = phase_stacked_kernels(sref, sfq)
-        stacked_counts = phase_stacked(work, sref, sfq, scmp, sbam)
+        multi_counts = phase_multi(work, *phase_multi_data(work))
         resume_counts = phase_resume(work, lib, fq, bam, pout, se_wall, wlib, wfq)
         pipeline_counts = phase_pipeline(work, lib, pairs, bam, pout)
         profile_counts = phase_profile(work, cmp_lib, cmp_fq)
@@ -2699,14 +2627,15 @@ def main(argv=None) -> int:
     # times and bounds at each kernel's main path (intersect_class_bits's at
     # groupcls B's first chunk); launches summed over every path's runs,
     # errors over every check
-    runs = (group_counts, mono_counts, wide_counts, layout_counts, cls_counts, stacked_counts, resume_counts,
+    runs = (group_counts, mono_counts, wide_counts, layout_counts, cls_counts, multi_counts, resume_counts,
             pipeline_counts, profile_counts, mesh_counts)
     kernels = [
         ("kmer_keys", "nimble_tpu/align/kernels.py:157", sum(c["kmer_keys"] for c in runs),
-         max(kk_err, cls_err, st_err, mesh_errs["kmer_keys"]), kk_ms, kk_plain, kk_bound),
+         max(kk_err, cls_err, mesh_errs["kmer_keys"]), kk_ms, kk_plain, kk_bound),
         ("mono_probe", "nimble_tpu/align/kernels.py:273",
-         mono_counts["mono_probe"] + stacked_counts["mono_probe"] + resume_counts["mono_probe"]
-         + mesh_counts["mono_probe"], max(mp_err, st_err, mesh_errs["mono_probe"]), mp_ms, mp_plain, mp_bound),
+         mono_counts["mono_probe"] + multi_counts["mono_probe"] + resume_counts["mono_probe"]
+         + mesh_counts["mono_probe"],
+         max(mp_err, mesh_errs["mono_probe"]), mp_ms, mp_plain, mp_bound),
         ("band_tree_expand", "nimble_tpu/align/kernels.py:394",
          wide_counts["band_tree_expand"] + layout_counts["band_tree_expand"] + cls_counts["band_tree_expand"]
          + resume_counts["band_tree_expand"]

@@ -21,8 +21,8 @@ k+g-1), with the two-choice inline probe as the mono path's fallback; and
 on wide libraries (W > 16) that can be banded, on the banded group path
 (gband, in each of the reference's four table layouts), and the other
 wide paths (groupcls, monocls, the wide two-choice
-probe); several libraries at once through the stacked engine (one merged
-probe answers every library); on a data x feature mesh of devices
+probe); several libraries at once, one engine each; on a data x feature
+mesh of devices
 (`--mesh`) and in worlds of processes, coordinated or not. Four
 hand-written CUDA kernels run on the card — the window stage
 (csrc/kmer_keys.cu), the fused mono probe (csrc/mono_probe.cu), the gband
@@ -46,7 +46,8 @@ Modules (named after their reference counterparts):
                                      intersect_class_bits: CUDA kernels +
                                      plain torch versions
   nimble_tpu_torch.align.engine    — the align steps, output wires, engine
-  nimble_tpu_torch.align.stacked   — the stacked multi-library engine
+  nimble_tpu_torch.align.stacked   — mono_probe under the name the
+                                     benchmark's kernels layer wraps
   nimble_tpu_torch.align.host_probe— host mono repair for short reads
   nimble_tpu_torch.align.pipeline  — the `align` orchestration
   nimble_tpu_torch.parallel.mesh   — `--mesh`: the device grid, table

@@ -8,13 +8,10 @@ collapse, trimming, `--probe`, the group paths' short-read repair and the
 three emission routes (dense bits, gband band rows, idlist ids) are the
 reference's own, so the output is byte-identical.
 
-Several comma-separated libraries run as one engine each. With
-NIMBLE_TPU_STACK=1 they run as one stacked engine instead (align/stacked.py:
-one merged probe answers every library) wherever the reference stacks them:
-they share one trim, k, stride and fit the stack's width, and their stacked
-tables can be placed. The stack is opt-in because on the H100 it has lost
-to the per-library engines on every workload measured (PERF.md, section 5):
-its merged table is far larger and the libraries' tails still run once each.
+Several comma-separated libraries run as one engine each: the reference's
+unstacked run. The reference stacks them into one merged probe by default,
+which gives the same bytes wherever its stack takes each library's own
+probe (group or mono).
 
 Checkpoint/resume and worlds are the reference's: a progress sidecar
 (`<output>.progress.json`, or `<output>.shardP.progress.json` in a world)
@@ -52,7 +49,6 @@ import torch
 from nimble_tpu_torch.config import Config, load_library
 from nimble_tpu_torch.index.builder import KmerIndex, build_index_for_library
 from nimble_tpu_torch.align.engine import AlignEngine, expand_band_rows_np, ids_to_bits_np, wire_bytes
-from nimble_tpu_torch.align.stacked import NotStackable, StackedEngine
 from nimble_tpu_torch import observability as obs
 
 TSV_HEADER = [
@@ -645,42 +641,14 @@ def _slice_reader_batch(batch: dict, start: int) -> dict:
 
 def _build_engines(runners: List[LibraryRunner], device: torch.device,
                    strand_filter: str, chunk_size: Optional[int], max_len: int,
-                   paired: bool, chunk_cap: Optional[int], log, mesh_plan=None) -> Optional[StackedEngine]:
+                   paired: bool, chunk_cap: Optional[int], log, mesh_plan=None) -> None:
     """(Re)construct the engines at a given max read length
-    (pipeline.py:_build_engines): one engine per library, or, when
-    NIMBLE_TPU_STACK=1 opts in, ONE stacked engine for every library where
-    the reference stacks them (several libraries, one trim,
-    StackedEngine.compatible, no feature-split mesh), unless their stacked
-    tables cannot be placed (NotStackable, the run log's `stacked_engine`
-    event with `refused`). Every engine runs on `mesh_plan` when one is
-    given. The run log's `engine` event says which path each engine took,
-    its chunk size, its table bytes and its wire; a stacked engine's also
-    the libraries it answers; under a mesh also each shard's table bytes.
-    Returns the stacked engine, or None (engines on the runners)."""
+    (pipeline.py:_build_engines): one engine per library, set on its
+    runner, each on `mesh_plan` when one is given. The run log's `engine`
+    event says which path each engine took, its chunk size, its table bytes
+    and its wire; under a mesh also each shard's table bytes."""
     meshed = {} if mesh_plan is None else {"mesh": [mesh_plan.n_data, mesh_plan.n_feature]}
     with log.stage("engine_build", max_len=max_len):
-        stacked = None
-        indexes = [r.index for r in runners]
-        configs = [r.config for r in runners]
-        if (len(runners) > 1 and len({r.trim for r in runners}) == 1
-                and (mesh_plan is None or mesh_plan.n_feature == 1)
-                and os.environ.get("NIMBLE_TPU_STACK", "") == "1"
-                and StackedEngine.compatible(indexes, configs)):
-            try:
-                stacked = StackedEngine(indexes, configs, device, strand_filter=strand_filter,
-                                        chunk_size=chunk_size, max_len=max_len, paired=paired,
-                                        chunk_cap=chunk_cap, mesh=mesh_plan)
-            except NotStackable as e:
-                log.event("stacked_engine", n_libraries=len(runners), max_len=max_len, refused=str(e))
-        if stacked is not None:
-            for r in runners:
-                r.engine = None
-            if meshed:
-                meshed["shard_table_bytes"] = stacked.shard_table_bytes
-            log.event("stacked_engine", n_libraries=len(runners), group_g=stacked.group_g, max_len=max_len)
-            log.event("engine", path=stacked.path, chunk_size=stacked.chunk_size,
-                      table_bytes=stacked.table_bytes, wire=stacked.wire, n_libraries=len(runners), **meshed)
-            return stacked
         for r in runners:
             r.engine = AlignEngine(
                 r.index, r.config, device,
@@ -695,7 +663,6 @@ def _build_engines(runners: List[LibraryRunner], device: torch.device,
                 meshed["shard_table_bytes"] = r.engine.shard_table_bytes
             log.event("engine", path=r.engine.path, chunk_size=r.engine.chunk_size,
                       table_bytes=r.engine.table_bytes, wire=r.engine.wire, **meshed)
-    return None
 
 
 def warm_engine(index: KmerIndex, config: Config, device: torch.device, read_len: int,
@@ -1092,12 +1059,11 @@ def _align_run(reference: str, output: str, inputs: Sequence[str], device: torch
         else:
             L = reader_len
 
-        stacked = _build_engines(runners, device, strand_filter, chunk_size, L, paired,
-                                 batch_records, log, mesh_plan)
+        _build_engines(runners, device, strand_filter, chunk_size, L, paired, batch_records, log, mesh_plan)
         # the span stays fixed for the whole run (a rebuild to a wider read
         # length keeps it), so span indices, ownership and resume cursors
         # are those of any run with the same span
-        span = stacked.chunk_size if stacked is not None else runners[0].engine.chunk_size
+        span = runners[0].engine.chunk_size
         if resumed_span is not None and resumed_span != span:
             raise ValueError(
                 f"--resume: the progress sidecar {progress_path} was written with a span of "
@@ -1117,7 +1083,7 @@ def _align_run(reference: str, output: str, inputs: Sequence[str], device: torch
         def patch_short(r, out, sb):
             # group paths only: rows whose shortest mate is under k+g-1 get
             # exact host mono results instead of their unmapped verdict
-            group_g = stacked.group_g if stacked is not None else r.engine.params.group_g
+            group_g = r.engine.params.group_g
             if out is None or group_g < 2:
                 return
             min_len = r.index.k + group_g - 1
@@ -1161,12 +1127,9 @@ def _align_run(reference: str, output: str, inputs: Sequence[str], device: torch
             nonlocal total, aligned
             reads_end, n, handles, sb, span_idx = entry
             pre = [r._file.tell() for r in runners] if world_n > 1 else None
-            wire[0] += wire_bytes(handles if stacked is not None else [e for h in handles for e in h])
+            wire[0] += wire_bytes([e for h in handles for e in h])
             with obs.span("engine.collect"):
-                if stacked is not None:
-                    outs = stacked.collect_async(handles) or [None] * len(runners)
-                else:
-                    outs = [r.engine.collect_async(h) for r, h in zip(runners, handles)]
+                outs = [r.engine.collect_async(h) for r, h in zip(runners, handles)]
             with obs.span("pipeline.emit"):
                 for r, out in zip(runners, outs):
                     patch_short(r, out, sb)
@@ -1183,14 +1146,7 @@ def _align_run(reference: str, output: str, inputs: Sequence[str], device: torch
 
         def submit(sb):
             # per-runner trim applies to the lens only; windows beyond the
-            # trimmed length are invalidated on the device by `inside`. A
-            # stack's libraries share one trim.
-            if stacked is not None:
-                pb = dict(sb)
-                pb["r1_lens"] = trimmed_lens(sb["r1_lens"], runners[0].trim)
-                if paired:
-                    pb["r2_lens"] = trimmed_lens(sb["r2_lens"], runners[0].trim)
-                return stacked.align_packed_async(pb)
+            # trimmed length are invalidated on the device by `inside`
             handles = []
             for r in runners:
                 pb = dict(sb)
@@ -1328,11 +1284,10 @@ def _align_run(reference: str, output: str, inputs: Sequence[str], device: torch
                 drain()
                 log.event("max_len_rebuild", max_len=payload)
                 # free the old engines' tables before the new ones are built
-                stacked = None
                 for r in runners:
                     r.engine = None
-                stacked = _build_engines(runners, device, strand_filter, chunk_size,
-                                         payload, paired, batch_records, log, mesh_plan)
+                _build_engines(runners, device, strand_filter, chunk_size, payload, paired, batch_records, log,
+                               mesh_plan)
             else:
                 dispatch(payload)
         drain()

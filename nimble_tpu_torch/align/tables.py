@@ -169,15 +169,16 @@ def _occupied_entries(index: KmerIndex):
     return hi, lo, vs, vd
 
 
-def _single_hash_placement(hi: np.ndarray, lo: np.ndarray, entry_words: int, slots: int):
+def _single_hash_placement(hi: np.ndarray, lo: np.ndarray, entry_words: int):
     """engine.py:_single_hash_placement — grow-until-tight single-hash
-    placement. Returns None (infeasible under MONO_MAX_BYTES/MONO_MAX_STASH)
-    or (nb2, bucket_ids, slot_ids, placed_keys, stash_keys)."""
+    placement into buckets of MONO_SLOTS slots. Returns None (infeasible
+    under MONO_MAX_BYTES/MONO_MAX_STASH) or (nb2, bucket_ids, slot_ids,
+    placed_keys, stash_keys)."""
     n = hi.shape[0]
     best = None
     for extra in (1, 2, 3, 4, 5, 6):
         nb2 = 1 << max(1, int(np.ceil(np.log2(n))) + extra)
-        if nb2 * slots * entry_words * 4 > MONO_MAX_BYTES:
+        if nb2 * MONO_SLOTS * entry_words * 4 > MONO_MAX_BYTES:
             break
         h, _ = bucket_hashes_np(hi, lo, nb2)
         order = np.argsort(h, kind="stable")
@@ -188,7 +189,7 @@ def _single_hash_placement(hi: np.ndarray, lo: np.ndarray, entry_words: int, slo
         start = np.flatnonzero(boundary)
         group = np.cumsum(boundary) - 1
         rank = np.arange(n) - start[group]
-        placed = rank < slots
+        placed = rank < MONO_SLOTS
         n_over = int((~placed).sum())
         if best is None or n_over < best[0]:
             best = (n_over, nb2, h_sorted, order, rank, placed)
@@ -244,7 +245,7 @@ def build_group_tables(index: KmerIndex) -> Optional[Dict[str, np.ndarray]]:
     if g > 8:
         return None
     entry = 2 + 2 * W + 1
-    placement = _single_hash_placement(hi, lo, entry, MONO_SLOTS)
+    placement = _single_hash_placement(hi, lo, entry)
     if placement is None:
         return None
     nb2, b, s, keys, skeys = placement
@@ -294,7 +295,7 @@ def build_mono_tables(index: KmerIndex) -> Optional[Dict[str, np.ndarray]]:
     if hi.shape[0] == 0:
         return None
     entry = 2 + 2 * W
-    placement = _single_hash_placement(hi, lo, entry, MONO_SLOTS)
+    placement = _single_hash_placement(hi, lo, entry)
     if placement is None:
         return None
     nb2, b, s, keys, skeys = placement
@@ -387,7 +388,7 @@ def build_monocls_tables(index: KmerIndex) -> Optional[Dict[str, np.ndarray]]:
     hi, lo, vs, vd = _occupied_entries(index)
     if hi.shape[0] == 0:
         return None
-    placement = _single_hash_placement(hi, lo, 4, MONO_SLOTS)
+    placement = _single_hash_placement(hi, lo, 4)
     if placement is None:
         return None
     nb2, b, s, keys, skeys = placement
@@ -432,7 +433,7 @@ def build_groupcls_tables(index: KmerIndex) -> Optional[Dict[str, np.ndarray]]:
         return None
     n = hi.shape[0]
     entry = 2 + 2 * g + 1
-    placement = _single_hash_placement(hi, lo, entry, MONO_SLOTS)
+    placement = _single_hash_placement(hi, lo, entry)
     if placement is None:
         return None
     nb2, b, s, keys, skeys = placement
@@ -693,7 +694,7 @@ def _gband_placement(index: KmerIndex, two_choice: bool):
     single-hash under MONO_MAX_BYTES."""
     if two_choice:
         return _two_choice_placement(index.pair_hi, index.pair_lo, MONO_SLOTS)
-    return _single_hash_placement(index.pair_hi, index.pair_lo, 4, MONO_SLOTS)
+    return _single_hash_placement(index.pair_hi, index.pair_lo, 4)
 
 
 def gband_payload(index: KmerIndex, bands):

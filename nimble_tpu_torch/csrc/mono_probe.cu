@@ -44,8 +44,8 @@
 // and outputs near the byte bound (kernel_bench.py times that case too);
 // the two dependent L2 round trips of the valid windows are the rest.
 //
-// S comes from the row width and W is an argument, so the stacked engine's
-// narrower buckets and concatenated W fit the same kernel.
+// S comes from the row width and W is an argument, so a table of narrower
+// buckets (S = 2, the reference's stacked layout) fits the same kernel.
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -46,8 +46,6 @@ log's `reader` event:
            path, and its event says `stream`;
   stream   gz, one member start (gzip, pigz): streaming zlib in 8 MiB
            chunks;
-  whole    the same file under NIMBLE_TPU_WHOLE_INFLATE=1: libdeflate
-           inflates the whole file into one buffer first;
   plain    uncompressed: a memmap cut into views (streamed above
            NIMBLE_TPU_PLAIN_MMAP_MAX_MB).
 """
@@ -79,19 +77,10 @@ _WINDOW_BYTES = 256 << 20
 _GZ_MAGIC = b"\x1f\x8b\x08"  # gzip ID1 ID2, CM = deflate
 _GZ_MIN_MEMBER = 20  # a 10-byte header, an empty deflate block, an 8-byte trailer
 
-# libdeflate whole-member inflate runs ~2.4x faster than streaming zlib
-# (measured 888 vs 365 MB/s on this host; docs/PERF.md round-3), but needs
-# the whole member's output resident. Files whose COMPRESSED size exceeds
-# this cap fall back to streaming zlib.
-_LIBDEFLATE_MAX_MB = int(
-    os.environ.get("NIMBLE_TPU_LIBDEFLATE_MAX_MB", "2048")
-)
-
 # Plain (uncompressed) files under this cap are np.memmap'd whole — the OS
 # pages them in on demand, so address space (not RAM) is the cost — and
 # cut into contiguous zero-copy record views. Larger files stream in 8 MiB
-# chunks. Distinct knob from the libdeflate cap above: that one bounds a
-# RAM-resident inflate output, this one only bounds a mapping.
+# chunks.
 _PLAIN_MMAP_MAX_MB = int(
     os.environ.get("NIMBLE_TPU_PLAIN_MMAP_MAX_MB", "65536")
 )
@@ -132,62 +121,6 @@ def _libdeflate():
     _LD = lib
     _LD_TRIED = True
     return _LD
-
-
-def _inflate_whole(path: str) -> Optional[np.ndarray]:
-    """Whole-file gzip inflate via libdeflate (multi-member aware).
-
-    Returns a uint8 array of the decompressed bytes, or None when
-    libdeflate is unavailable / the file exceeds the size cap / the stream
-    is malformed (callers then use streaming zlib, which reports errors
-    properly)."""
-    lib = _libdeflate()
-    if lib is None:
-        return None
-    try:
-        comp = np.fromfile(path, dtype=np.uint8)
-    except OSError:
-        return None
-    if comp.size == 0 or comp.size > _LIBDEFLATE_MAX_MB << 20:
-        return None if comp.size else np.empty(0, np.uint8)
-    # gzip trailer ISIZE (decompressed size mod 2^32 of the LAST member) is
-    # an exact hint for the common single-member case
-    isize = int(comp[-4:].view(np.uint32)[0]) if comp.size >= 4 else 0
-    cap = max(isize, 4 * comp.size, 32 << 20)
-    out = np.empty(cap, np.uint8)
-    d = lib.libdeflate_alloc_decompressor()
-    try:
-        pos = 0
-        written = 0
-        a_in = ctypes.c_size_t(0)
-        a_out = ctypes.c_size_t(0)
-        base_in = comp.ctypes.data
-        while pos < comp.size:
-            while True:
-                rc = lib.libdeflate_gzip_decompress_ex(
-                    d,
-                    base_in + pos,
-                    comp.size - pos,
-                    out.ctypes.data + written,
-                    out.size - written,
-                    ctypes.byref(a_in),
-                    ctypes.byref(a_out),
-                )
-                if rc == 3:  # LIBDEFLATE_INSUFFICIENT_SPACE: grow and retry
-                    grown = np.empty(out.size * 2 + (64 << 20), np.uint8)
-                    grown[:written] = out[:written]
-                    out = grown
-                    continue
-                break
-            if rc != 0:
-                return None  # malformed: let streaming zlib raise cleanly
-            pos += a_in.value
-            written += a_out.value
-            if a_in.value == 0:
-                break  # trailing garbage guard
-        return out[:written]
-    finally:
-        lib.libdeflate_free_decompressor(d)
 
 
 def _inflate_workers(num_threads: int) -> int:
@@ -594,12 +527,7 @@ class ThreadedFastqReader:
             inflate workers; a member path's event comes from `reports` as
             the producer ends.
 
-            gz of one member: streaming zlib unless NIMBLE_TPU_WHOLE_INFLATE=1
-            asks for libdeflate into one buffer of the whole output. On an
-            H100 host first touch of such a buffer is cheap (224 MiB in
-            0.063-0.109 s, against 0.024-0.028 s to write it again), but that
-            host has no libdeflate: there the variable streams, and the
-            member path inflates with zlib."""
+            gz of one member: streaming zlib."""
             B = self.batch_size
             event = {"path": "stream", "file": path, "members": 0, "merges": 0, "fallback": False,
                      "workers": workers}
@@ -608,11 +536,6 @@ class ThreadedFastqReader:
                 return _record_buffers_contig(_member_chunks(mm, inflate_pool, workers, event), B)
             if path.endswith(".gz"):
                 event["members"] = starts
-                if os.environ.get("NIMBLE_TPU_WHOLE_INFLATE", "") == "1":
-                    arr = _inflate_whole(path)
-                    if arr is not None:
-                        obs.runlog().event("reader", **{**event, "path": "whole"})
-                        return _record_buffers_contig([(arr, None)], B)
                 obs.runlog().event("reader", **event)
                 return _record_buffers_contig(_stream_chunks(path), B)
             obs.runlog().event("reader", **{**event, "path": "plain"})

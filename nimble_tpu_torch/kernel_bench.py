@@ -46,9 +46,7 @@ times, the walk's needs, bytes and bounds (`intersect`).
 `class_stages` and `stage_ms` cut one step of a class-id wide path
 (groupcls, monocls, the wide two-choice probe) into its stages and time
 each on the card (`intersect_walk`: the runs a read's intersection walks
-and the row sectors they need), and
-`stacked_stages` one step of the stacked engine (window, merged probe,
-the libraries' tails, pack); chip_smoke.py prints them.
+and the row sectors they need); chip_smoke.py prints them.
 
 `run` calls only what the port has had since its gband slice and takes
 each table in the layout that checkout's engine ships, so this file, copied
@@ -491,35 +489,6 @@ def gband_stages(eng, codes, lens):
     ]
 
 
-def stacked_stages(eng, codes, lens):
-    """One single-end step of a stacked engine on these reads, cut into its
-    stages as class_stages cuts a class-id step: the window stage (the
-    kmer_keys kernel, at k+g-1 on the group stack, at k on the mono stack),
-    the merged probe (`stacked_group_probe`, or the mono_probe kernel at S =
-    STACK_SLOTS, W = W_cat), the L libraries' tails (window masks,
-    coverage, orientation and AND on each word slice, combine_mates) and
-    the pack of every library's outputs into one flat tensor."""
-    from nimble_tpu_torch.align import stacked as TS
-
-    t, ps, seg = eng.tables, eng.params, eng.seg_words
-    W_cat, g = int(seg[-1]), eng.group_g
-    mates = [(codes, lens)]
-    if g:
-        window = lambda _: TS.group_window(codes, lens, t, ps[0], g)
-        probe = lambda keys: TS.group_probe_rows(keys, t, W_cat, g)
-        tail = lambda *a: TS.group_tail(*a, g)
-    else:
-        window = lambda _: TS.mono_window(codes, lens, t, ps[0])
-        probe = lambda keys: TS.mono_probe_rows(keys, t, W_cat)
-        tail = TS.mono_tail
-    return [
-        ("window", window),
-        ("merged probe", probe),
-        ("tails", lambda rows: TS.library_tails(ps, seg, tail, mates, [rows])),
-        ("pack", TS.pack_stacked),
-    ]
-
-
 def stage_ms(stages, reps: int = 5) -> dict:
     """Each stage's time (ms) on the card: CUDA events around it, the card
     idle before it, so a stage's time is the longer of its kernels' and its
@@ -574,15 +543,12 @@ def fastq_head(fq: str, B: int, L: int):
 
 def captured(eng, codes, lens, name: str):
     """The arguments of the first call that eng.align_batch(codes, lens)
-    makes to the kernel wrapper `name` (the engine's and the stacked
-    engine's module references to it). The engine's tables are kept as
-    they are; other tensors are copied."""
+    makes to the kernel wrapper `name` (the engine module's reference to
+    it). The engine's tables are kept as they are; other tensors are
+    copied."""
     from nimble_tpu_torch.align import engine as TE
-    from nimble_tpu_torch.align import kernels as K
-    from nimble_tpu_torch.align import stacked as TS
 
-    orig = getattr(K, name)
-    holders = [m for m in (TE, TS) if getattr(m, name, None) is orig]
+    orig = getattr(TE, name)
     tables = [t for t in eng.tables.values() if hasattr(t, "data_ptr")]
     seen = []
 
@@ -592,13 +558,11 @@ def captured(eng, codes, lens, name: str):
                               for a in args))
         return orig(*args)
 
-    for m in holders:
-        setattr(m, name, capture)
+    setattr(TE, name, capture)
     try:
         eng.align_batch(codes, lens)
     finally:
-        for m in holders:
-            setattr(m, name, orig)
+        setattr(TE, name, orig)
     if not seen:
         raise AssertionError(f"the engine never called {name}")
     return seen[0]
@@ -616,19 +580,6 @@ def engine(lib: str, group_g=None, device: str = "cuda", chunk_size=None):
     eng = AlignEngine(r.index, r.config, torch.device(device), chunk_size=chunk_size,
                       max_len=_round_len(READ_LEN), paired=False)
     return r, eng
-
-
-def stacked_engine(libs, group_g=None, device: str = "cuda", chunk_size=None):
-    """The stacked engine that `align` builds for these libraries and 100 bp
-    single-end reads, on the card unless the caller asks for the CPU."""
-    import torch
-
-    from nimble_tpu_torch.align.pipeline import _round_len, make_runner
-    from nimble_tpu_torch.align.stacked import StackedEngine
-
-    rs = [make_runner(lib, os.devnull, group_g=group_g) for lib in libs]
-    return StackedEngine([r.index for r in rs], [r.config for r in rs], torch.device(device),
-                         chunk_size=chunk_size, max_len=_round_len(READ_LEN), paired=False)
 
 
 def time_kernel(name: str, args) -> dict:

@@ -10,7 +10,8 @@ nimble_tpu_torch keeps those prints and adds:
     log opened) and `t_ns` (time.time_ns(), the clock of the profiler's
     trace). The pipeline's threads all write to it: each write takes a
     lock, so every line is one whole JSON record;
-  * stage() — a timed stage of the run log (`stage_start`, then
+  * stage() — a timed stage of the run log (`stage_start`, which also
+    carries `open_ns`, the clock once the stage's range is open, then
     `stage_end` with its `wall_s` and the fields its block adds, such as
     `bytes`), also a range of the profiler's trace;
   * span() — a named span. The names of COUNTERS are counters: each span
@@ -179,9 +180,11 @@ class RunLog:
         self.t0 = time.time()
 
     def event(self, kind: str, **fields: Any) -> None:
+        self._write(time.time_ns(), kind, fields)
+
+    def _write(self, now: int, kind: str, fields: dict) -> None:
         if self._f is None:
             return
-        now = time.time_ns()
         record = {"t": round(now / 1e9 - self.t0, 6), "t_ns": now, "event": kind}
         record.update(fields)
         line = json.dumps(record) + "\n"
@@ -194,12 +197,19 @@ class RunLog:
     def stage(self, name: str, **fields: Any):
         """A timed stage: `stage_start` with `fields`, then `stage_end`
         with its `wall_s` and whatever the block put into the dict it is
-        given (a count known only at the end, such as `bytes`)."""
-        self.event("stage_start", stage=name, **fields)
+        given (a count known only at the end, such as `bytes`). The
+        `stage_start` record's `t_ns` is the clock just before the stage's
+        range opens and its `open_ns` the clock once it is open: opening a
+        range can wait for the GIL (up to the interpreter's 5 ms switch
+        interval behind each busy thread) or for a core, so the range
+        starts between the two. The record is written once the range is
+        open, so that the write's own wait is not between them."""
         end = {}
         t0 = time.time()
+        now = time.time_ns()
         try:
             with span(name):
+                self._write(now, "stage_start", {"stage": name, **fields, "open_ns": time.time_ns()})
                 yield end
         finally:
             self.event("stage_end", stage=name, wall_s=round(time.time() - t0, 4), **end)

@@ -14,9 +14,12 @@ directory, which must hold one). Prints one JSON object:
     for the rest; `device_total_s` their sum. The engine's stage ranges
     (`engine.keys`, `engine.probe`, ...) so give each stage's device-only
     time;
-  * `stamps`: for each `stage_start` of the run log, the stage and the
-    microseconds from its `t_ns` to the start of the nearest range of that
-    name (the run log's clock is the trace's).
+  * `stamps`: for each `stage_start` of the run log, the stage, `us`: the
+    microseconds from its stamps to the start of the nearest range of that
+    name (the run log's clock is the trace's), 0 where the range starts
+    between `t_ns` and `open_ns` (the clock before and after the range
+    opened), negative before `t_ns`, positive after `open_ns`; and
+    `open_us`: the time the range took to open.
 """
 from __future__ import annotations
 
@@ -95,8 +98,9 @@ def summarize(trace: dict, events=()) -> dict:
     stamps = []
     for e in events:
         if e.get("event") == "stage_start" and "t_ns" in e and e["stage"] in starts:
-            t = e["t_ns"] / 1e3
-            stamps.append({"stage": e["stage"], "us": min((s - t for s in starts[e["stage"]]), key=abs)})
+            t, t_open = e["t_ns"] / 1e3, e.get("open_ns", e["t_ns"]) / 1e3
+            off = (min(s - t, 0) + max(s - t_open, 0) for s in starts[e["stage"]])
+            stamps.append({"stage": e["stage"], "us": min(off, key=abs), "open_us": t_open - t})
     return {"threads": threads, "device_s": dict(sorted(device_s.items(), key=lambda kv: -kv[1])),
             "device_total_s": sum(device_s.values()), "stamps": stamps}
 

@@ -123,31 +123,3 @@ def test_class_stages_compose_the_step(tmp_path, probe, key):
     assert [name for name, _ in stages] == ["window", "probe", "intersection", "combine + pack"]
     want = T.pack_outputs(T.align_step(eng.tables, eng.params, codes, lens))
     assert torch.equal(x, want) and T.unpack_outputs(want.numpy(), 32, 64)["pass_"].any()
-
-
-@pytest.mark.parametrize("probe", ["group", "mono"])
-def test_stacked_stages_compose_the_step(tmp_path, probe):
-    """The stacked stages that chip_smoke.py times, run in order, are the
-    stacked step + pack (bench_data.write_stacked's libraries, the group
-    stack and, off the group probe, the mono stack); the kernels'
-    arguments are captured from the stacked engine too."""
-    from nimble_tpu_torch.align import stacked as TS
-
-    libs, fq, _ = bench_data.write_stacked(tmp_path, 64, alleles=4)
-    eng = KB.stacked_engine(libs, group_g=0 if probe == "mono" else None, device="cpu", chunk_size=64)
-    assert eng.path == f"stacked-{probe}" and eng.seg_words == (0, 1, 2, 3)  # 4 alleles a library
-    codes, lens = (torch.from_numpy(a) for a in KB.fastq_head(fq, 64, eng.max_len))
-    x = None
-    stages = KB.stacked_stages(eng, codes, lens)
-    for _, fn in stages:
-        x = fn(x)
-    assert [name for name, _ in stages] == ["window", "merged probe", "tails", "pack"]
-    assert torch.equal(x, TS.pack_stacked(eng.step_outputs(codes, lens)))
-    assert all(o["pass_"].any() for o in eng.collect_async([(x, "full", 64)]))
-    kargs = KB.captured(eng, codes.numpy(), lens.numpy(), "kmer_keys")
-    k = eng.params[0].k + (eng.group_g - 1 if eng.group_g else 0)
-    assert kargs[2] == k and torch.equal(kargs[0], codes)
-    if probe == "mono":
-        bucket, *_, stash, W = KB.captured(eng, codes.numpy(), lens.numpy(), "mono_probe")
-        assert bucket is eng.tables["mono_bucket"] and stash is eng.tables["mono_stash"] and W == 3
-        assert bucket.shape[1] == TS.STACK_SLOTS * (2 + 2 * W)

@@ -1,6 +1,6 @@
-"""`align --mesh` of the port (parallel/mesh.py, AlignEngine(mesh=),
-StackedEngine(mesh=)) on the CPU, against the reference's mesh on the
-8-device virtual CPU mesh that tests/conftest.py forces, exactly.
+"""`align --mesh` of the port (parallel/mesh.py, AlignEngine(mesh=)) on
+the CPU, against the reference's mesh on the 8-device virtual CPU mesh that
+tests/conftest.py forces, exactly.
 
 * The spec parser against the reference's, its errors, and the CLI's device
   rule (cuda: the visible cards; cpu: the shards an explicit data axis
@@ -13,13 +13,14 @@ StackedEngine(mesh=)) on the CPU, against the reference's mesh on the
   paired: score, pass_ and the full bits, padding words included, equal
   the reference's mesh engine, and bits[:, :W] the port's unmeshed engine
   on the same path.
-* StackedEngine(mesh=) on tests/test_mesh_cli.py's workload; a feature
-  split is NotStackable.
+* One AlignEngine(mesh=) per library on tests/test_mesh_cli.py's two
+  libraries, against the reference's StackedEngine(mesh=), which stacks
+  them.
 * The CLI on tests/test_mesh_cli.py's workspace: the TSV bytes of the
   port's unmeshed run and of the reference CLI's `--mesh` run, two
-  libraries with and without the stack, `--probe mono` under a feature
-  split, the run log's `mesh` event, and the refusal of a grid larger than
-  the visible cards.
+  libraries under a data split and under a feature split, `--probe mono`
+  under a feature split, the run log's `mesh` event, and the refusal of a
+  grid larger than the visible cards.
 * plan_index_placement against the reference, shard_tables' one copy per
   distinct device.
 """
@@ -39,7 +40,6 @@ from nimble_tpu.parallel import mesh as RM
 from nimble_tpu_torch import observability
 from nimble_tpu_torch.__main__ import main as port_cli
 from nimble_tpu_torch.align.engine import AlignEngine, expand_band_rows_np, ids_to_bits_np
-from nimble_tpu_torch.align.stacked import NotStackable, StackedEngine
 from nimble_tpu_torch.parallel import mesh as PM
 from tests.test_mesh_cli import workspace  # noqa: F401  (the fixture)
 from tests.test_torch_gband import family_seqs, groupcls_seqs, make_data, read_batch
@@ -230,20 +230,24 @@ def stacked_workload():
 
 
 def test_stacked_engine_mesh_matches_the_reference():
+    """The reference stacks the two libraries under its data mesh; the port
+    runs one meshed engine per library (group path, 8 shards). Each
+    library's score, pass_ and bits equal its rows of the reference's
+    stack and those of the port's unmeshed engine."""
     refs, ports, cfgs, codes, lens = stacked_workload()
     ref = RefStacked(refs, cfgs, chunk_size=64, max_len=80, mesh=RM.make_mesh(n_data=8, n_feature=1))
     want = ref.collect_async(ref.align_batch_async(codes, lens))
-    eng = StackedEngine(ports, cfgs, CPU, chunk_size=64, max_len=80, mesh=PM.make_mesh(8, 1, CPU8))
-    got = eng.collect_async(eng.align_batch_async(codes, lens))
-    alone = StackedEngine(ports, cfgs, CPU, chunk_size=64, max_len=80)
-    base = alone.collect_async(alone.align_batch_async(codes, lens))
-    assert eng.path == "stacked-group" and len(eng.shards) == 8
-    for w, g, b in zip(want, got, base):
+    assert ref.group_g
+    for w, ix, cfg in zip(want, ports, cfgs):
+        eng = AlignEngine(ix, cfg, CPU, chunk_size=64, max_len=80, mesh=PM.make_mesh(8, 1, CPU8))
+        got = eng.collect_async(eng.align_batch_async(codes, lens))
+        alone = AlignEngine(ix, cfg, CPU, chunk_size=64, max_len=80)
+        base = alone.collect_async(alone.align_batch_async(codes, lens))
+        assert eng.path == "group" and len(eng.shards) == 8
         for key in ("score", "pass_", "bits"):
-            assert np.array_equal(np.asarray(w[key]).astype(np.int64), g[key].astype(np.int64)), key
-            assert np.array_equal(b[key], g[key]), key
-    with pytest.raises(NotStackable, match="data axis only"):
-        StackedEngine(ports, cfgs, CPU, mesh=PM.make_mesh(4, 2, CPU8))
+            assert np.array_equal(np.asarray(w[key]).astype(np.int64), got[key].astype(np.int64)), key
+            assert np.array_equal(base[key], got[key]), key
+        assert got["pass_"].any()
 
 
 def test_plan_index_placement_matches_the_reference(libs, monkeypatch):
@@ -328,20 +332,25 @@ def test_cli_mesh_matches_unmeshed_and_the_reference(workspace, mesh, tmp_path, 
     assert eng["path"] == ("group" if n_feature == 1 else "monocls")
 
 
-@pytest.mark.parametrize("stack", ["", "1"], ids=["per-library", "stacked"])
-def test_cli_mesh_two_libraries(workspace, stack, tmp_path, monkeypatch):  # noqa: F811
-    """Two libraries under --mesh data=8, one engine each or stacked
-    (NIMBLE_TPU_STACK=1): each library's TSV is the unmeshed run's and the
-    reference CLI's."""
-    monkeypatch.setenv("NIMBLE_TPU_STACK", stack)
+@pytest.mark.parametrize("mesh", ["data=8", "data=4,feature=2"], ids=["per-library", "feature-split"])
+def test_cli_mesh_two_libraries(workspace, mesh, tmp_path, monkeypatch):  # noqa: F811
+    """Two libraries under --mesh, one engine each, on a data split and on
+    a feature split (monocls): each library's TSV is the unmeshed run's and
+    the reference CLI's under the same grid (which stacks the libraries on
+    the data split and runs one engine each on the feature split)."""
     ref = f"{workspace['library']},{workspace['other_lib']}"
-    runs = {}
-    for tag, extra in (("base", []), ("mesh", ["--mesh", "data=8"])):
+    log = tmp_path / "runlog.jsonl"
+    for tag, extra in (("base", []), ("mesh", ["--mesh", mesh])):
         args = ["align", "--reference", ref, "--output", str(tmp_path / f"{tag}.tsv"), "--input", workspace["fastq"],
                 "--chunk-size", "32", *extra]
+        monkeypatch.setattr(observability, "_GLOBAL", observability.RunLog(str(log)) if extra else None)
         assert port_cli([*args, "--device", "cpu"]) == 0
+    monkeypatch.setattr(observability, "_GLOBAL", None)
+    engines = [json.loads(ln) for ln in log.read_text().splitlines() if '"event": "engine"' in ln]
+    want = ("group", [8, 1]) if mesh == "data=8" else ("monocls", [4, 2])
+    assert [(e["path"], e["mesh"]) for e in engines] == [want] * 2
     args = ["align", "--reference", ref, "--output", str(tmp_path / "ref.tsv"), "--input", workspace["fastq"],
-            "--chunk-size", "32", "--mesh", "data=8"]
+            "--chunk-size", "32", "--mesh", mesh]
     assert ref_cli(args) == 0
     for suffix, rows in (("library", 60), ("other", 0)):  # the reads come from the first library
         runs = [(tmp_path / f"{tag}.{suffix}.tsv").read_bytes() for tag in ("base", "mesh", "ref")]

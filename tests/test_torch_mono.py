@@ -297,16 +297,29 @@ def _moved_to_stash(ref, n_move: int, hit):
     return t
 
 
-@pytest.mark.parametrize("name, n_move", [("w2", 0), ("w2", 40), ("w10", 20), ("mismatch1", 0), ("pal16", 10)])
-def test_mono_probe_matches_reference_and_pallas(libs, name, n_move):
+@pytest.mark.parametrize("name, n_move, slots", [
+    *(pytest.param(n, m, None, id=f"{n}-{m}")
+      for n, m in (("w2", 0), ("w2", 40), ("w10", 20), ("mismatch1", 0), ("pal16", 10))),
+    pytest.param("w2", 20, 2, id="w2-20-S2"),
+])
+def test_mono_probe_matches_reference_and_pallas(libs, name, n_move, slots):
     """The port's mono_probe on CPU (its plain version) == the reference's
     mono_probe (XLA branch) == mono_select_pallas in interpret mode on the
-    gathered, transposed rows, at B not a multiple of 8."""
+    gathered, transposed rows, at B not a multiple of 8. The tables have
+    the library's MONO_SLOTS slots a bucket, or `slots` (the reference's
+    stacked layout of the one library, S = 2)."""
+    from nimble_tpu.align.stacked import build_stacked_tables
+
     seqs, _, index, ref, _ = libs[name]
     W = index.bitset_words
     k = index.k
     B, L = 37, 60
     codes, lens = _reads(seqs, B, L, seed=3)
+    if slots is not None:
+        ref = build_stacked_tables([index], slots=slots)
+        ref.pop("seg_words")
+        ref = {key: np.asarray(v) for key, v in ref.items()}
+        assert ref["mono_bucket"].shape[1] == slots * (2 + 2 * W)
     nb2 = ref["mono_bucket"].shape[0]
     hi_i, lo_i, h1, fc, pal, valid = _keys(codes, lens, k, nb2)
     if n_move:

@@ -2,6 +2,7 @@
 made unimportable, and no module under nimble_tpu_torch/ (nor chip_smoke.py)
 imports jax or any part of nimble_tpu, not even one without jax in it."""
 import ast
+import json
 import os
 import pathlib
 import shutil
@@ -49,12 +50,13 @@ def test_align_probe_mono_runs_without_jax(tmp_path):
 
 
 def test_stacked_align_runs_without_jax(tmp_path):
-    """Several libraries through the stacked engine (align/stacked.py, opted
-    in by NIMBLE_TPU_STACK=1) import no jax either; each library's TSV is
-    the one it gets alone."""
-    from nimble_tpu_torch.align import stacked
+    """Several libraries, one engine each (where the reference stacks
+    them), import no jax either; each library's TSV is the one it gets
+    alone. align/stacked.py, which re-exports mono_probe for the
+    benchmark, imports on its own."""
+    from nimble_tpu_torch.align import kernels, stacked
 
-    assert stacked.StackedEngine.compatible  # the module imports on its own
+    assert stacked.mono_probe is kernels.mono_probe
     libs = []
     for name in ("liba", "libb"):
         shutil.copy(GOLD / "lib_base.json", tmp_path / f"{name}.json")
@@ -64,11 +66,12 @@ def test_stacked_align_runs_without_jax(tmp_path):
     res = subprocess.run(
         [sys.executable, "-c", SCRIPT, "align", "--reference", ",".join(libs),
          "--output", str(out), "--input", str(GOLD / "r1.fastq"), str(GOLD / "r2.fastq"), "--device", "cpu"],
-        cwd=REPO, capture_output=True, text=True, timeout=300, env={**os.environ, "NIMBLE_TPU_RUNLOG": str(log), "NIMBLE_TPU_STACK": "1"},
+        cwd=REPO, capture_output=True, text=True, timeout=300, env={**os.environ, "NIMBLE_TPU_RUNLOG": str(log)},
     )
     assert res.returncode == 0, res.stderr[-3000:]
     assert "LOADED []" in res.stdout
-    assert '"path": "stacked-group"' in log.read_text()
+    engines = [json.loads(ln) for ln in log.read_text().splitlines() if '"event": "engine"' in ln]
+    assert [e["path"] for e in engines] == ["group", "group"]
     for name in ("liba", "libb"):
         assert (tmp_path / f"out.{name}.tsv").read_bytes() == (GOLD / "golden_base.tsv").read_bytes()
 

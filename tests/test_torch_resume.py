@@ -7,8 +7,8 @@ run of the same command and to the reference.
 * A hard kill (the `emit_out` wrapper of tests/test_multiproc_align.py:170:
   os._exit(9) right after the n-th span's rows, before its checkpoint) in a
   process of its own, then `--resume`, on single-end FASTQ, tagged BAM
-  pairs, two libraries with one engine each and stacked
-  (NIMBLE_TPU_STACK=1), `--probe mono`, gband and groupcls: each gives the
+  pairs, two libraries with one engine each (on the group path and under
+  `--probe mono`), `--probe mono`, gband and groupcls: each gives the
   uninterrupted run's bytes and takes the named path.
 * Across packages: the reference killed at the same emit count writes a
   sidecar with the same keys (the port adds `span`) and the same cursor and
@@ -203,8 +203,8 @@ KILL_CASES = {
     "fastq": ("library.json", ["reads.fastq"], [], {}, 6, "group"),
     "bam-pairs": ("library.json", ["pairs.bam"], [], {}, 4, "group"),
     "two-libraries": ("library.json,library2.json", ["reads.fastq"], [], {}, 9, "group"),
-    "two-libraries-stacked": ("library.json,library2.json", ["reads.fastq"], [], {"NIMBLE_TPU_STACK": "1"}, 9,
-                              "stacked-group"),
+    "two-libraries-probe-mono": ("library.json,library2.json", ["reads.fastq"], ["--probe", "mono"], {}, 9,
+                                 "mono"),
     "probe-mono": ("library.json", ["reads.fastq"], ["--probe", "mono"], {}, 5, "mono"),
     "gband": ("lib_wide.json", ["wide.fastq"], [], {}, 2, "gband"),
     "groupcls": ("lib_gcls.json", ["gcls.fastq"], [], {}, 2, "groupcls"),
@@ -222,8 +222,7 @@ def test_kill_then_resume_gives_the_uninterrupted_bytes(ws, case, tmp_path, caps
     full = str(tmp_path / "full.tsv")
     rc, _, events = port_in_process([*base, "--output", full], capsys, monkeypatch, tmp_path / "full.jsonl")
     assert rc == 0
-    assert [e["path"] for e in events if e["event"] == "engine"] == [path] * (
-        1 if path.startswith("stacked") else len(libs.split(",")))
+    assert [e["path"] for e in events if e["event"] == "engine"] == [path] * len(libs.split(","))
     want = read_all(outputs(full, ref))
     assert all(w.count(b"\n") > 20 for w in want)  # not vacuous: reads map
 

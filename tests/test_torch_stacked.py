@@ -1,10 +1,13 @@
-"""The port's stacked multi-library engine (nimble_tpu_torch/align/stacked.py)
-against the reference's (nimble_tpu/align/stacked.py) and against the
-per-library engines, on the CPU: the merged tables array for array (before
-the mono table's re-lay), the engine's outputs key for key on the same
-reads, the stacking and group gates, and the `align` TSVs of the port
-stacked (NIMBLE_TPU_STACK=1), the port by default (one engine per library)
-and the reference CLI, byte for byte. Modelled on tests/test_stacked.py."""
+"""Several libraries in one `align`, on the CPU: the port runs one
+AlignEngine per library, where the reference (nimble_tpu/align/stacked.py)
+stacks them into one merged probe. Each library's outputs, key for key,
+equal the reference's StackedEngine split by library, on its group and its
+mono stack and at its gates, wherever the stack takes that library's own
+probe; where it does not, they differ on exactly the reads whose windows
+the group probe loses to a read error. The `align` TSVs of the port equal the
+reference CLI's byte for byte (single-end, paired, `--probe mono`, trims,
+short reads, a wide library, a read-width rebuild, 10x pairs and their
+report). Modelled on tests/test_stacked.py."""
 import dataclasses
 import json
 import types
@@ -15,12 +18,12 @@ import torch
 
 from nimble_tpu import seq as seqmod
 from nimble_tpu.__main__ import main as ref_cli
+from nimble_tpu.align import engine as RE
 from nimble_tpu.align import stacked as RS
 from nimble_tpu.config import Config
 from nimble_tpu_torch import observability
 from nimble_tpu_torch.__main__ import main as port_cli
 from nimble_tpu_torch.align import engine as T
-from nimble_tpu_torch.align import stacked as TS
 from nimble_tpu_torch.align.pipeline import append_path_string
 from nimble_tpu_torch.config import Config as PortConfig
 from tests.test_stacked import make_data, make_reads, rand_seq
@@ -74,64 +77,6 @@ def wide47():
     return both_libs([wide, narrow], configs), wide + narrow
 
 
-def _keys(hi, lo):
-    """(hi, lo) int32 bit patterns -> uint64 keys."""
-    return (np.asarray(hi).view(np.uint32).astype(np.uint64) << np.uint64(32)) | np.asarray(lo).view(
-        np.uint32).astype(np.uint64)
-
-
-def _assert_same_tables(want, got):
-    assert want is not None and got is not None
-    assert set(want) == set(got)
-    for key, v in want.items():
-        if isinstance(v, tuple) or np.isscalar(v):
-            assert got[key] == v, key
-        else:
-            w = np.asarray(v)
-            assert got[key].dtype == w.dtype and np.array_equal(got[key], w), key
-
-
-@pytest.mark.parametrize("which", ["three", "shared", "wide47"])
-def test_stacked_tables_equal_reference(libs3, wide47, which):
-    """build_stacked_tables and build_stacked_group_tables give the
-    reference's arrays (the mono table in its planar layout, before the
-    port's re-lay), seg_words and pair_g; every distinct canonical key of
-    the libraries is placed or stashed once (tests/test_stacked.py:106,
-    :135), and a library's mask word is nonzero exactly where it holds
-    the key."""
-    if which == "three":
-        ref_ix, port_ix = libs3[:2]
-    elif which == "wide47":
-        ref_ix, port_ix = wide47[0][0], wide47[0][1]
-    else:
-        rng = np.random.default_rng(5)
-        shared = rand_seq(rng, 100)
-        ref_ix, port_ix, _, _ = both_libs([[shared], [shared, rand_seq(rng, 80)]], [Config(), Config()])
-    mono = TS.build_stacked_tables(port_ix)
-    group = TS.build_stacked_group_tables(port_ix)
-    _assert_same_tables(RS.build_stacked_tables(ref_ix), mono)
-    _assert_same_tables(RS.build_stacked_group_tables(ref_ix), group)
-    assert mono["seg_words"] == tuple(np.cumsum([0] + [ix.bitset_words for ix in port_ix]))
-
-    S = TS.STACK_SLOTS
-    union = np.unique(np.concatenate([TS._lib_entries(ix)[0] for ix in port_ix]))
-    b = mono["mono_bucket"]
-    placed = _keys(b[:, :S], b[:, S : 2 * S])[b[:, :S] != -1]
-    stashed = _keys(mono["mono_stash_hi"], mono["mono_stash_lo"])[mono["mono_stash_hi"] != -1]
-    assert np.array_equal(np.sort(np.concatenate([placed, stashed])), union)
-
-    pair_keys = [_keys(ix.pair_hi, ix.pair_lo) for ix in port_ix]
-    W_cat = mono["seg_words"][-1]
-    b = group["sg_bucket"]
-    occ = b[:, :S] != -1
-    held_keys = _keys(b[:, :S], b[:, S : 2 * S])
-    stashed = _keys(group["sg_stash_hi"], group["sg_stash_lo"])[group["sg_stash_hi"] != -1]
-    assert np.array_equal(np.sort(np.concatenate([held_keys[occ], stashed])), np.unique(np.concatenate(pair_keys)))
-    for li, keys in enumerate(pair_keys):
-        m = b[:, 2 * S + 2 * W_cat * S + li * S : 2 * S + 2 * W_cat * S + (li + 1) * S]
-        assert np.array_equal((m != 0) & occ, np.isin(held_keys, keys) & occ)
-
-
 def _reads(src, paired: bool, seed: int, n: int = 64, L: int = 80):
     """tests/test_stacked.py:make_reads from the libraries' sequences and
     unrelated ones (errors, N bases, half reverse-complemented)."""
@@ -150,6 +95,45 @@ def _assert_outputs_equal(want, got, what):
             assert np.array_equal(np.asarray(a[key]), b[key]), f"{what}: library {li}, {key}"
 
 
+def _per_library_matches_stack(ref_ix, port_ix, ref_cfg, port_cfg, r1, l1, r2=None, l2=None, **kw):
+    """The reference's StackedEngine and one port AlignEngine per library,
+    built with the same arguments, on the same reads: every library's
+    outputs equal, every key. Returns (the reference's engine, the port's
+    engines, the port's outputs)."""
+    ref = RS.StackedEngine(ref_ix, ref_cfg, **kw)
+    engines = [T.AlignEngine(ix, cfg, CPU, **kw) for ix, cfg in zip(port_ix, port_cfg)]
+    got = [e.align_batch(r1, l1, r2, l2) for e in engines]
+    _assert_outputs_equal(ref.collect_async(ref.align_batch_async(r1, l1, r2, l2)), got, "reference")
+    return ref, engines, got
+
+
+@pytest.mark.parametrize("which", ["shared", "wide47"])
+def test_stacked_tables_equal_reference(wide47, monkeypatch, which):
+    """On the library sets that the engine cases on three libraries do not
+    cover: k-mers shared across two libraries (one library's only feature is
+    the other's first), and a W = 47 library beside a narrow one (a 48-word
+    stack, which the reference takes on its mono stack). Each port engine's
+    rows equal that library's rows of the reference's stack. The W = 47
+    engine runs off the group probe (monocls), whose wire is dense bits:
+    on its default gband path the wire is feature ids, which the CLI
+    comparisons of this library hold to the reference."""
+    if which == "wide47":
+        monkeypatch.setenv("NIMBLE_TPU_NO_GROUP_PROBE", "1")
+        (ref_ix, port_ix, ref_cfg, port_cfg), src = wide47
+        src = src[:60] + src[1480:]
+        want_g, L = 0, 40
+    else:
+        rng = np.random.default_rng(5)
+        shared = rand_seq(rng, 100)
+        src = [shared, rand_seq(rng, 80)]
+        ref_ix, port_ix, ref_cfg, port_cfg = both_libs([[shared], src], [Config(), Config()])
+        want_g, L = ref_ix[0].pair_g, 60
+    r1, l1, _, _ = _reads(src, False, seed=7, n=96, L=L)
+    ref, _, got = _per_library_matches_stack(ref_ix, port_ix, ref_cfg, port_cfg, r1, l1, chunk_size=32,
+                                             max_len=L)
+    assert ref.group_g == want_g and all(o["pass_"].any() for o in got)
+
+
 ENGINE_CASES = {
     "group-se": dict(paired=False),
     "group-pe": dict(paired=True),
@@ -164,10 +148,11 @@ ENGINE_CASES = {
 
 @pytest.mark.parametrize("case", sorted(ENGINE_CASES))
 def test_stacked_engine_matches_reference(libs3, monkeypatch, case):
-    """The port's StackedEngine == the reference's StackedEngine, every
-    library and every output key, exactly; and == each library's own port
-    AlignEngine (tests/test_stacked.py:70). The mono stack is taken with
-    NIMBLE_TPU_NO_GROUP_PROBE=1 or kmer_stride = 2."""
+    """Each library's own port AlignEngine == that library's outputs of the
+    reference's StackedEngine, every output key, exactly
+    (tests/test_stacked.py:70). The reference takes its mono stack, and the
+    port's engines the mono path, with NIMBLE_TPU_NO_GROUP_PROBE=1 or
+    kmer_stride = 2; else the group stack and the group path."""
     c = ENGINE_CASES[case]
     ref_ix, port_ix, ref_cfg, port_cfg, src = libs3
     if c.get("mono"):
@@ -177,119 +162,111 @@ def test_stacked_engine_matches_reference(libs3, monkeypatch, case):
         port_cfg = [dataclasses.replace(x, kmer_stride=c["stride"]) for x in port_cfg]
     paired, strand = c["paired"], c.get("strand", "unstranded")
     r1, l1, r2, l2 = _reads(src, paired, seed=len(case))
-    kw = dict(strand_filter=strand, chunk_size=32, max_len=80, paired=paired)
-    ref = RS.StackedEngine(ref_ix, ref_cfg, **kw)
-    eng = TS.StackedEngine(port_ix, port_cfg, CPU, **kw)
-    assert eng.group_g == ref.group_g
-    assert eng.path == ("stacked-mono" if c.get("mono") or c.get("stride") else "stacked-group")
-    got = eng.align_batch(r1, l1, r2, l2)
-    _assert_outputs_equal(ref.collect_async(ref.align_batch_async(r1, l1, r2, l2)), got, "reference")
-    solo = [T.AlignEngine(ix, cfg, CPU, **kw) for ix, cfg in zip(port_ix, port_cfg)]
-    _assert_outputs_equal([e.align_batch(r1, l1, r2, l2) for e in solo], got, "per-library")
+    mono = c.get("mono") or c.get("stride")
+    ref, engines, got = _per_library_matches_stack(ref_ix, port_ix, ref_cfg, port_cfg, r1, l1, r2, l2,
+                                                   strand_filter=strand, chunk_size=32, max_len=80, paired=paired)
+    assert bool(ref.group_g) == (not mono)
+    assert [e.path for e in engines] == ["mono" if mono else "group"] * 3
     assert any(o["pass_"].any() for o in got)
-
-
-def test_stacked_engine_dispatch_and_chunk(libs3, monkeypatch):
-    """Packed-wire dispatch equals the code dispatch (the helper both
-    engines share); the auto chunk is the reference's formula (the same
-    words a read on both stacks, the same chunk under the CPU clamp), and a
-    chunk_cap rounds it down to a power of two."""
-    from nimble_tpu_torch.io.packing import pack_batch
-
-    ref_ix, port_ix, ref_cfg, port_cfg, src = libs3
-    r1, l1, r2, l2 = _reads(src, True, seed=3, n=100)
-    eng = TS.StackedEngine(port_ix, port_cfg, CPU, chunk_size=32, max_len=80, paired=True)
-    pb = pack_batch({"r1_codes": r1, "r1_lens": l1, "r2_codes": r2, "r2_lens": l2}, 80)
-    _assert_outputs_equal(eng.align_batch(r1, l1, r2, l2),
-                          eng.collect_async(eng.align_packed_async(pb)), "packed")
-    assert eng.collect_async([]) is None
-    per_read = []
-    real = RS.E._chunk_from_per_read
-    monkeypatch.setattr(RS.E, "_chunk_from_per_read", lambda n, paired: per_read.append(n) or real(n, paired))
-    for paired, mono in ((False, False), (True, False), (True, True)):
-        if mono:
-            monkeypatch.setenv("NIMBLE_TPU_NO_GROUP_PROBE", "1")
-        ref = RS.StackedEngine(ref_ix, ref_cfg, chunk_size=None, max_len=112, paired=paired)
-        auto = TS.StackedEngine(port_ix, port_cfg, CPU, chunk_size=None, max_len=112, paired=paired)
-        assert auto.chunk_size == ref.chunk_size and auto._per_read() == per_read[-1]
-        assert auto.path == ("stacked-mono" if mono else "stacked-group")
-    capped = TS.StackedEngine(port_ix, port_cfg, CPU, chunk_size=None, max_len=112, chunk_cap=100)
-    assert capped.chunk_size == 64
-    # on the card the CPU clamp does not apply
-    assert T.chunk_from_per_read(auto._per_read(), True, torch.device("cuda")) > auto.chunk_size
-    assert eng.wire == "full" and eng.table_bytes == sum(t.numel() * 4 for t in eng.tables.values())
-
-
-def test_compatible_gates(libs3):
-    """StackedEngine.compatible agrees with the reference's: equal k and
-    stride, and at most STACK_MAX_WORDS words in all."""
-    ref_ix, port_ix, ref_cfg, port_cfg, _ = libs3
-    stride2 = Config(kmer_stride=2)
-    narrow = types.SimpleNamespace(k=K, bitset_words=30)
-    cases = [
-        (ref_ix, ref_cfg, port_ix, port_cfg, True),
-        (ref_ix, [ref_cfg[0], ref_cfg[1], stride2], port_ix, [port_cfg[0], port_cfg[1], port_config(stride2)],
-         False),
-        ([narrow, narrow], [Config()] * 2, [narrow, narrow], [PortConfig()] * 2, True),
-        ([narrow, narrow, narrow], [Config()] * 3, [narrow] * 3, [PortConfig()] * 3, False),  # 90 words
-        ([narrow, types.SimpleNamespace(k=K + 2, bitset_words=1)], [Config()] * 2,
-         [narrow, types.SimpleNamespace(k=K + 2, bitset_words=1)], [PortConfig()] * 2, False),
-    ]
-    for rix, rcfg, pix, pcfg, want in cases:
-        assert RS.StackedEngine.compatible(rix, rcfg) == want
-        assert TS.StackedEngine.compatible(pix, pcfg) == want
 
 
 GATE_CASES = ["default", "max-len-short", "no-group-env", "stride2", "wide-w9", "no-group-entries",
               "two-g"]
 
 
+def _lost_window_reads(codes, lens, seqs, k: int, g: int, L: int) -> set:
+    """The reads on which the group probe of a library of these sequences
+    answers fewer windows than the mono probe (nimble_tpu/align/engine.py:
+    _score_mate_group): a k-window of the read that occurs in the library
+    (either strand) which no probe answers, a probe being a (k+g-1)-mer of
+    the read, at a multiple of g or at the tail len-(k+g-1), that occurs in
+    the library and covers windows probe..probe+g-1. A read error or N
+    inside every probe around such a window loses it."""
+    kg = k + g - 1
+    kmers, kgmers = set(), set()
+    for s in seqs:
+        for t in (s, seqmod.decode(seqmod.revcomp_codes(seqmod.encode(s)))):
+            kmers.update(t[i : i + k] for i in range(len(t) - k + 1))
+            kgmers.update(t[i : i + kg] for i in range(len(t) - kg + 1))
+    PP = L - kg + 1
+    lost = set()
+    for r, n in enumerate(int(x) for x in lens):
+        read = seqmod.decode(codes[r, :n])
+        probes = [p for p in [*range(0, PP, g), min(max(n - kg, 0), PP - 1)]
+                  if p + kg <= n and read[p : p + kg] in kgmers]
+        if any(read[j : j + k] in kmers and not any(p <= j < p + g for p in probes) for j in range(n - k + 1)):
+            lost.add(r)
+    return lost
+
+
 @pytest.mark.parametrize("case", GATE_CASES)
 def test_group_gate_matches_reference(libs3, monkeypatch, case):
-    """The stack takes the group probe exactly where the reference's does
-    (stacked.py:468-479): every library with group entries of one g, at W
-    <= GROUP_MAX_WORDS and stride 1, reads at least k+g-1 long and
-    NIMBLE_TPU_NO_GROUP_PROBE unset; else the mono stack, with the same
-    tables."""
-    ref_ix, port_ix, ref_cfg, port_cfg, _ = libs3
-    max_len = 80
+    """At each of the reference stack's gates (stacked.py:468-479: every
+    library with group entries of one g, at W <= GROUP_MAX_WORDS and stride
+    1, reads at least k+g-1 long and NIMBLE_TPU_NO_GROUP_PROBE unset; else
+    its mono stack) each port engine takes its own library's path, and its
+    rows equal those of the reference's engine of that library alone (what
+    the reference runs under NIMBLE_TPU_NO_STACK=1). Where the port's
+    engine takes the probe the stack took for every library, its rows also
+    equal that library's rows of the reference's stack. Where the stack's
+    gate sends a library that takes the group probe alone to the mono stack
+    (a set with a W = 9 library, one without group entries, or two g), the
+    stack's rows of it are that library's mono path, exactly; they differ
+    from the group rows alone on exactly the reads whose windows the group
+    probe loses to a read error (_lost_window_reads), and there the group
+    scores are never higher (ROADMAP, faults found in the reference)."""
+    ref_ix, port_ix, ref_cfg, port_cfg, src = libs3
+    max_len = L = 80
     rng = np.random.default_rng(9)
+    lib_seqs = [src[:10]]
     if case == "max-len-short":
-        max_len = K + ref_ix[0].pair_g - 2
+        max_len = L = K + ref_ix[0].pair_g - 2
     elif case == "no-group-env":
         monkeypatch.setenv("NIMBLE_TPU_NO_GROUP_PROBE", "1")
     elif case == "stride2":
         ref_cfg = [dataclasses.replace(x, kmer_stride=2) for x in ref_cfg]
         port_cfg = [dataclasses.replace(x, kmer_stride=2) for x in port_cfg]
-    elif case == "wide-w9":  # 264 features: W = 9 > GROUP_MAX_WORDS
-        extra = both_libs([[rand_seq(rng, 60) for _ in range(264)]], [Config(kmer_length=K)])
+    elif case in ("wide-w9", "no-group-entries", "two-g"):
+        if case == "wide-w9":  # 264 features: W = 9 > GROUP_MAX_WORDS
+            seqs, kw, L = [rand_seq(rng, 60) for _ in range(264)], {}, 60
+        else:
+            seqs, kw = [rand_seq(rng, 200) for _ in range(3)], {"group_g": 0 if case == "no-group-entries" else 5}
+        extra = both_libs([seqs], [Config(kmer_length=K)], **kw)
         ref_ix, port_ix = ref_ix[:1] + extra[0], port_ix[:1] + extra[1]
         ref_cfg, port_cfg = ref_cfg[:1] + extra[2], port_cfg[:1] + extra[3]
-    elif case in ("no-group-entries", "two-g"):
-        extra = both_libs([[rand_seq(rng, 200) for _ in range(3)]], [Config(kmer_length=K)],
-                          group_g=0 if case == "no-group-entries" else 5)
-        ref_ix, port_ix = ref_ix[:1] + extra[0], port_ix[:1] + extra[1]
-        ref_cfg, port_cfg = ref_cfg[:1] + extra[2], port_cfg[:1] + extra[3]
-    ref = RS.StackedEngine(ref_ix, ref_cfg, chunk_size=32, max_len=max_len)
-    eng = TS.StackedEngine(port_ix, port_cfg, CPU, chunk_size=32, max_len=max_len)
-    assert eng.group_g == ref.group_g == (ref_ix[0].pair_g if case == "default" else 0)
-    assert eng.seg_words == ref.seg_words
-    if eng.group_g:
-        assert set(eng.tables) == set(ref.tables) == set(TS.STACKED_GROUP_KEYS)
-        assert all(np.array_equal(eng.tables[k].numpy(), np.asarray(ref.tables[k])) for k in ref.tables)
-    else:
-        assert set(eng.tables) == {"mono_bucket", "mono_stash"}
-
-
-def test_not_stackable_raises():
-    """A stack wider than STACK_MAX_WORDS (or one whose tables cannot be
-    placed) raises NotStackable, a ValueError as the reference's."""
-    wide = types.SimpleNamespace(k=K, n_buckets=1024, bitset_words=40, has_pairs=False)
-    assert TS.build_stacked_tables([wide, wide]) is None
-    assert TS.build_stacked_group_tables([wide, wide]) is None
-    with pytest.raises(TS.NotStackable):
-        TS.StackedEngine([wide, wide], [PortConfig(), PortConfig()], CPU, max_len=80)
-    assert issubclass(TS.NotStackable, ValueError)
+        src = src[:10] + seqs[:10]
+        lib_seqs.append(seqs)
+    r1, l1, _, _ = _reads(src, False, seed=len(case), L=L)
+    kw = dict(chunk_size=32, max_len=max_len)
+    ref = RS.StackedEngine(ref_ix, ref_cfg, **kw)
+    assert ref.group_g == (ref_ix[0].pair_g if case == "default" else 0)
+    stacked = ref.collect_async(ref.align_batch_async(r1, l1))
+    engines = [T.AlignEngine(ix, cfg, CPU, **kw) for ix, cfg in zip(port_ix, port_cfg)]
+    got = [e.align_batch(r1, l1) for e in engines]
+    alone = [RE.AlignEngine(ix, cfg, **kw) for ix, cfg in zip(ref_ix, ref_cfg)]
+    _assert_outputs_equal([e.collect_async(e.align_batch_async(r1, l1)) for e in alone], got, "reference alone")
+    group_alone = case in ("default", "wide-w9", "no-group-entries", "two-g")
+    assert engines[0].path == ("group" if group_alone else "mono")
+    same_probe = [li for li, e in enumerate(engines) if bool(e.params.group_g) == bool(ref.group_g)]
+    assert same_probe == ([1] if group_alone and not ref.group_g and case != "two-g" else
+                          [] if case == "two-g" else [0, 1, 2])
+    _assert_outputs_equal([stacked[li] for li in same_probe], [got[li] for li in same_probe], "reference stacked")
+    assert any(o["r1_fwd"].any() and o["r1_rev"].any() for o in got)  # windows matched both ways
+    for li in sorted(set(range(len(engines))) - set(same_probe)):
+        assert engines[li].path == "group" and not ref.group_g
+        with monkeypatch.context() as m:
+            m.setenv("NIMBLE_TPU_NO_GROUP_PROBE", "1")
+            mono = T.AlignEngine(port_ix[li], port_cfg[li], CPU, **kw)
+            assert mono.path == "mono"
+            _assert_outputs_equal([stacked[li]], [mono.align_batch(r1, l1)], "reference stacked, mono path")
+        differ = set()
+        for key, want in stacked[li].items():
+            rows = (np.asarray(want) != got[li][key]).reshape(len(l1), -1).any(axis=1)
+            differ.update(np.flatnonzero(rows).tolist())
+        lost = _lost_window_reads(r1, l1, lib_seqs[li], K, port_ix[li].pair_g, max_len)
+        assert differ == lost and lost, f"library {li}"
+        for key in ("r1_fwd", "r1_rev"):
+            assert (got[li][key] <= np.asarray(stacked[li][key])).all(), f"library {li}, {key}"
 
 
 def _write_libs(tmp_path, libs, k=K):
@@ -328,40 +305,34 @@ def _port_run(tmp_path, monkeypatch, args, tag):
     return [json.loads(ln) for ln in log.read_text().splitlines()]
 
 
-def _three_runs(tmp_path, monkeypatch, ref, inputs, names, flags=()):
-    """align through the port stacked (NIMBLE_TPU_STACK=1), the port by
-    default and the reference CLI (stacked, its default); every library's
-    TSV must be the same bytes in all three, and not empty. The default run
-    must build one unstacked engine per library. Returns the port's run log
-    events of the stacked run."""
-    outs = {tag: tmp_path / f"{tag}.tsv" for tag in ("stacked", "separate", "reference")}
+def _two_runs(tmp_path, monkeypatch, ref, inputs, names, flags=()):
+    """align through the port (one engine per library) and the reference
+    CLI (stacked, its default); every library's TSV must be the same bytes
+    in both, and not empty. Returns the port's run log events, whose
+    `engine` events must be one per library."""
+    outs = {tag: tmp_path / f"{tag}.tsv" for tag in ("port", "reference")}
     args = ["align", "--reference", ref, "--input", *inputs, *flags]
-    monkeypatch.setenv("NIMBLE_TPU_STACK", "1")
-    events = _port_run(tmp_path, monkeypatch, [*args, "--output", str(outs["stacked"])], "stacked")
-    monkeypatch.delenv("NIMBLE_TPU_STACK")
     assert ref_cli([*args, "--output", str(outs["reference"])]) == 0
-    separate = _engine_events(_port_run(tmp_path, monkeypatch, [*args, "--output", str(outs["separate"])],
-                                        "separate"))
-    assert [e["event"] for e in separate] == ["engine"] * len(names)
-    assert not any(e["path"].startswith("stacked") for e in separate)
+    events = _port_run(tmp_path, monkeypatch, [*args, "--output", str(outs["port"])], "port")
+    assert len(_engine_events(events)) == len(names)
     for name in names:
         got = {tag: open(append_path_string(str(p), f".{name}"), "rb").read() for tag, p in outs.items()}
-        assert got["stacked"] == got["reference"] == got["separate"], name
-        assert got["stacked"].count(b"\n") > 1, name
+        assert got["port"] == got["reference"], name
+        assert got["port"].count(b"\n") > 1, name
     return events
 
 
 def _engine_events(events):
-    return [e for e in events if e["event"] in ("engine", "stacked_engine")]
+    return [e for e in events if e["event"] == "engine"]
 
 
 PIPELINE_CASES = {
-    "group": dict(path="stacked-group"),
-    "mono-env": dict(path="stacked-mono", env=True),
-    "probe-mono": dict(path="stacked-mono", flags=["--probe", "mono"]),
-    "group-short-reads": dict(path="stacked-group", short=16),
-    "group-paired": dict(path="stacked-group", paired=True),
-    "group-trim": dict(path="stacked-group", flags=["--trim", "60:0.5,60:0.5,60:0.5"]),
+    "group": dict(path="group"),
+    "mono-env": dict(path="mono", env=True),
+    "probe-mono": dict(path="mono", flags=["--probe", "mono"]),
+    "group-short-reads": dict(path="group", short=16),
+    "group-paired": dict(path="group", paired=True),
+    "group-trim": dict(path="group", flags=["--trim", "60:0.5,60:0.5,60:0.5"]),
     "trims-differ": dict(path="group", flags=["--trim", "60:0.5"]),
 }
 
@@ -369,12 +340,11 @@ PIPELINE_CASES = {
 @pytest.mark.parametrize("case", sorted(PIPELINE_CASES))
 def test_align_stacked_tsvs_match(tmp_path, monkeypatch, case):
     """tests/test_stacked.py:182 through the port's CLI on three libraries:
-    the NIMBLE_TPU_STACK=1 TSVs == the default (per-library) TSVs == the
-    reference CLI's, on the group stack, the mono stack (NIMBLE_TPU_NO_GROUP_PROBE, or
-    `--probe mono`), paired, trimmed, and with reads shorter than k+g-1
-    (each library's host mono repair on the group stack). The run log's
-    `engine` event names the stacked path; libraries of different trims
-    run one engine each."""
+    the port's TSVs == the reference CLI's (which stacks libraries of one
+    trim), on the group path, the mono path (NIMBLE_TPU_NO_GROUP_PROBE, or
+    `--probe mono`), paired, trimmed alike and not, and with reads shorter
+    than k+g-1 (each library's host mono repair on the group path). The run
+    log's `engine` events name each library's path and the full wire."""
     c = PIPELINE_CASES[case]
     if c.get("env"):
         monkeypatch.setenv("NIMBLE_TPU_NO_GROUP_PROBE", "1")
@@ -390,36 +360,31 @@ def test_align_stacked_tsvs_match(tmp_path, monkeypatch, case):
     inputs = [_write_reads(tmp_path / "r1.fastq", src, 150, 80, 1, c.get("short", 0))]
     if c.get("paired"):
         inputs.append(_write_reads(tmp_path / "r2.fastq", src, 150, 80, 2))
-    events = _three_runs(tmp_path, monkeypatch, ref, inputs, libs, c.get("flags", ()))
-    eng = _engine_events(events)
-    if not c["path"].startswith("stacked"):  # libraries of different trims are not stacked
-        assert [(e["event"], e["path"]) for e in eng] == [("engine", c["path"])] * 3
-        return
-    assert [e["event"] for e in eng] == ["stacked_engine", "engine"]
-    assert eng[1]["path"] == c["path"] and eng[1]["n_libraries"] == 3 and eng[1]["wire"] == "full"
-    assert eng[0]["group_g"] == (6 if c["path"] == "stacked-group" else 0)
+    events = _two_runs(tmp_path, monkeypatch, ref, inputs, libs, c.get("flags", ()))
+    assert [(e["path"], e["wire"]) for e in _engine_events(events)] == [(c["path"], "full")] * 3
     patched = [e for e in events if e["event"] == "short_read_patch"]
     assert bool(patched) == bool(c.get("short"))
 
 
 def test_align_stacked_wide_library_matches_separate(tmp_path, monkeypatch):
     """tests/test_stacked.py:230: a library wider than the group gate (W =
-    9) next to a narrow one takes the mono stack, and its TSVs equal the
-    per-library engines' and the reference's."""
+    9) next to a narrow one, which the reference takes on its mono stack:
+    the port's engines take the mono path and the group path, and every
+    TSV equals the reference's."""
     rng = np.random.default_rng(31)
     libs = {"wide": [rand_seq(rng, 60) for _ in range(T.GROUP_MAX_WORDS * 32 + 8)],
             "narrow": [rand_seq(rng, 200) for _ in range(3)]}
     ref = _write_libs(tmp_path, libs)
     src = libs["wide"][:40] + libs["narrow"]
-    events = _three_runs(tmp_path, monkeypatch, ref, [_write_reads(tmp_path / "r.fastq", src, 80, 50, 3)], libs)
-    assert _engine_events(events)[1]["path"] == "stacked-mono"
+    events = _two_runs(tmp_path, monkeypatch, ref, [_write_reads(tmp_path / "r.fastq", src, 80, 50, 3)], libs)
+    assert [e["path"] for e in _engine_events(events)] == ["mono", "group"]
 
 
 def test_stacked_read_width_rebuild(tmp_path, monkeypatch):
-    """Reads longer than the first batch's width rebuild the stacked engine
-    wider mid-run (the run log's `max_len_rebuild`, then a second stacked
-    engine); every library's TSV equals the reference's align_files (which
-    stacks) and the port's per-library run."""
+    """Reads longer than the first batch's width rebuild every library's
+    engine wider mid-run (the run log's `max_len_rebuild`, then one engine
+    per library again); every library's TSV equals the reference's
+    align_files (which stacks)."""
     from nimble_tpu.align.pipeline import align_files as ref_align
     from nimble_tpu_torch.align.pipeline import align_files as port_align
 
@@ -434,59 +399,55 @@ def test_stacked_read_width_rebuild(tmp_path, monkeypatch):
             s = src[rng.integers(0, len(src))]
             st = int(rng.integers(0, len(s) - n + 1))
             f.write(f"@r{i}\n{s[st : st + n]}\n+\n{'I' * n}\n")
-    outs = {tag: str(tmp_path / f"{tag}.tsv") for tag in ("ref", "stacked", "separate")}
+    outs = {tag: str(tmp_path / f"{tag}.tsv") for tag in ("ref", "port")}
     assert ref_align(ref, outs["ref"], [str(fq)], batch_records=8) == 0
     log = tmp_path / "runlog.jsonl"
     monkeypatch.setattr(observability, "_GLOBAL", observability.RunLog(str(log)))
-    monkeypatch.setenv("NIMBLE_TPU_STACK", "1")
-    assert port_align(ref, outs["stacked"], [str(fq)], CPU, batch_records=8) == 0
+    assert port_align(ref, outs["port"], [str(fq)], CPU, batch_records=8) == 0
     monkeypatch.setattr(observability, "_GLOBAL", None)
-    monkeypatch.delenv("NIMBLE_TPU_STACK")
-    assert port_align(ref, outs["separate"], [str(fq)], CPU, batch_records=8) == 0
     events = [json.loads(ln) for ln in log.read_text().splitlines()]
     kinds = [e["event"] for e in events if e["event"] in ("engine", "max_len_rebuild")]
-    assert kinds == ["engine", "max_len_rebuild", "engine"]
-    assert all(e["path"] == "stacked-group" for e in _engine_events(events) if e["event"] == "engine")
+    assert kinds == ["engine", "engine", "max_len_rebuild", "engine", "engine"]
+    assert all(e["path"] == "group" for e in _engine_events(events))
     for name in libs:
         got = {tag: open(append_path_string(p, f".{name}"), "rb").read() for tag, p in outs.items()}
-        assert got["stacked"] == got["ref"] == got["separate"], name
-        assert got["stacked"].count(b"\n") > 20, name
+        assert got["port"] == got["ref"], name
+        assert got["port"].count(b"\n") > 20, name
 
 
 def test_wide47_stack_matches_reference(wide47, tmp_path, monkeypatch):
-    """A W = 47 library next to a narrow one: the mono stack at W_cat = 48
-    (mono_probe's S = 2 branch at a wide concatenated row) equals the
-    reference's StackedEngine on pairs; through the CLI (single-end) the
-    port's stacked TSVs equal the reference CLI's stacked TSVs, and the
-    port's separate TSVs the reference's separate TSVs (and here the
-    reference's stacked TSVs equal its separate ones)."""
+    """A W = 47 library next to a narrow one, which the reference takes on
+    its mono stack at W_cat = 48: the port's engine of each library equals
+    that library's rows of the reference's StackedEngine on pairs; through
+    the CLI (single-end) the port's TSVs equal the reference CLI's, stacked
+    and not (NIMBLE_TPU_NO_STACK=1, which the port does not read). The
+    engines run off the group probe, so the wide one ships dense bits
+    (monocls); the CLI runs take the default paths, gband for the wide
+    library."""
     (ref_ix, port_ix, ref_cfg, port_cfg), src = wide47
     rng = np.random.default_rng(4)
     src_reads = src[:60] + src[1480:]
     r1, l1 = make_reads(rng, src_reads, 96, 40)
     r2, l2 = make_reads(rng, src_reads, 96, 40)
-    ref = RS.StackedEngine(ref_ix, ref_cfg, chunk_size=64, max_len=40, paired=True)
-    eng = TS.StackedEngine(port_ix, port_cfg, CPU, chunk_size=64, max_len=40, paired=True)
-    assert eng.path == "stacked-mono" and eng.seg_words == (0, 47, 48)
-    got = eng.align_batch(r1, l1, r2, l2)
-    _assert_outputs_equal(ref.collect_async(ref.align_batch_async(r1, l1, r2, l2)), got, "reference")
+    with monkeypatch.context() as m:
+        m.setenv("NIMBLE_TPU_NO_GROUP_PROBE", "1")
+        ref, engines, got = _per_library_matches_stack(ref_ix, port_ix, ref_cfg, port_cfg, r1, l1, r2, l2,
+                                                       chunk_size=64, max_len=40, paired=True)
+    assert ref.group_g == 0 and ref.seg_words == (0, 47, 48) and engines[0].wire == "full"
     assert got[0]["pass_"].any() and got[1]["pass_"].any()
 
     libs = {"wide": src[:1480], "narrow": src[1480:]}
     ref = _write_libs(tmp_path, libs)
     fq = _write_reads(tmp_path / "r.fastq", src_reads, 120, 40, 5)
     outs = {}
-    for stack in ("1", ""):  # "1": both packages stacked; "": neither
-        monkeypatch.setenv("NIMBLE_TPU_STACK", stack)
-        monkeypatch.setenv("NIMBLE_TPU_NO_STACK", "" if stack else "1")
+    for no_stack in ("", "1"):
+        monkeypatch.setenv("NIMBLE_TPU_NO_STACK", no_stack)
         for tag, cli, extra in (("ref", ref_cli, []), ("port", port_cli, ["--device", "cpu"])):
-            out = tmp_path / f"{tag}{stack}.tsv"
+            out = tmp_path / f"{tag}{no_stack}.tsv"
             assert cli(["align", "--reference", ref, "--input", fq, "--output", str(out), *extra]) == 0
-            outs[tag, stack] = [open(append_path_string(str(out), f".{n}"), "rb").read() for n in libs]
-    assert outs["port", "1"] == outs["ref", "1"]
-    assert outs["port", ""] == outs["ref", ""]
-    assert outs["ref", "1"] == outs["ref", ""]  # the reference's own stack changes no byte here
-    assert all(t.count(b"\n") > 1 for t in outs["port", "1"])
+            outs[tag, no_stack] = [open(append_path_string(str(out), f".{n}"), "rb").read() for n in libs]
+    assert outs["port", ""] == outs["ref", ""] == outs["ref", "1"] == outs["port", "1"]
+    assert all(t.count(b"\n") > 1 for t in outs["port", ""])
 
 
 def _stackscale(n_per_lib: int):
@@ -535,21 +496,21 @@ def test_write_stacked_is_stackscales_workload(tmp_path):
 
 
 def test_stacked_workload_through_the_cli(tmp_path, monkeypatch):
-    """The stacked workload end to end, small (4 alleles a library; at 100
-    the merged group table alone takes 3.9 GB): 10x-shaped pairs
-    (fastq-to-bam) over the three libraries through the port stacked, the
-    port per library and the reference CLI, TSVs byte for byte; then each
-    library's report equals the reference's."""
+    """The stacked workload end to end, small (4 alleles a library):
+    10x-shaped pairs (fastq-to-bam) over the three libraries through the
+    port, one engine each on the group path, and the reference CLI
+    (stacked), TSVs byte for byte; then each library's report equals the
+    reference's."""
     from nimble_tpu_torch import bench_data
 
     libs, _, (r1, r2, wl) = bench_data.write_stacked(tmp_path, 0, 300, alleles=4)
     bam = str(tmp_path / "tagged.bam")
     assert port_cli(["fastq-to-bam", "--r1-fastq", r1, "--r2-fastq", r2, "--map", wl, "--output", bam]) == 0
     names = [f"stacked{i}" for i in range(3)]
-    events = _three_runs(tmp_path, monkeypatch, ",".join(libs), [bam], names)
-    assert _engine_events(events)[1]["path"] == "stacked-group"
+    events = _two_runs(tmp_path, monkeypatch, ",".join(libs), [bam], names)
+    assert [e["path"] for e in _engine_events(events)] == ["group"] * 3
     for name in names:
-        tsv = append_path_string(str(tmp_path / "stacked.tsv"), f".{name}")
+        tsv = append_path_string(str(tmp_path / "port.tsv"), f".{name}")
         outs = [str(tmp_path / f"{name}.{tag}.counts") for tag in ("ref", "port")]
         assert ref_cli(["report", "-i", tsv, "-o", outs[0]]) == 0
         assert port_cli(["report", "-i", tsv, "-o", outs[1]]) == 0

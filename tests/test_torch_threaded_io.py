@@ -229,13 +229,12 @@ def test_one_member_takes_the_stream_path(tmp_path, events, monkeypatch):
     path = write(tmp_path / "r.fastq.gz", gzip.compress(b"".join(recs), 6))
     want = as_batches(serial_batches(path, 768))
     assert_same(read_all(path), want)
-    monkeypatch.setenv("NIMBLE_TPU_WHOLE_INFLATE", "1")
+    monkeypatch.setenv("NIMBLE_TPU_WHOLE_INFLATE", "1")  # not read: a one-member file always streams
     assert_same(read_all(path), want)
     plain = write(tmp_path / "r.fastq", b"".join(recs))
     assert_same(read_all(plain), want)
     got = [(e["path"], e["members"], e["fallback"]) for e in events()]
-    whole = "whole" if threaded._libdeflate() is not None else "stream"
-    assert got == [("stream", 1, False), (whole, 1, False), ("plain", 0, False)]
+    assert got == [("stream", 1, False), ("stream", 1, False), ("plain", 0, False)]
 
 
 @pytest.mark.parametrize("chunk", [4099, 65_536])
