@@ -5,11 +5,15 @@ The builders below are numpy copies of engine.py's `_single_hash_placement`,
 `_group_entry_payload`, `_build_group_tables`, `_build_mono_tables`, the
 two-choice bucket of `_device_tables` (with inline bitsets for W <= 16,
 without them for W > 16), `_build_class_bands(_robust)`, `_np_band_combine`,
-`_build_groupband_tables`, `_build_groupcls_tables` and
-`_build_monocls_tables`, with the same constants, so that every key lands in
-the same bucket and slot as in the reference (the reference module cannot be
-imported without jax). Each builder returns the reference's own keys as
-numpy arrays; `tables_from_reference` turns them into the port's tensors.
+`_build_groupband_tables` and `_build_monocls_tables`, with the same
+constants, so that every key lands in the same bucket and slot as in the
+reference (the reference module cannot be imported without jax). Each
+builder returns the reference's own keys as numpy arrays;
+`tables_from_reference` turns them into the port's tensors. The groupcls
+table alone is built in torch, on the engine's device, from the index's
+compact entries (`build_groupcls_tables`): its bucket is mostly empty (4 GB
+for 94 MB of entries on the 20,000-allele HLA library), so the host hands
+over the entries and the card places and fills it.
 One path's tables are shipped, never the arrays it does not read (the
 two-choice bucket beside a mono, group, gband, groupcls or monocls table;
 `class_bits` where no class-id intersection runs); the bitset width W is
@@ -67,7 +71,7 @@ import numpy as np
 import torch
 
 from nimble_tpu_torch.index.builder import BUCKET_SLOTS, KmerIndex
-from nimble_tpu_torch.index.hashing import bucket_hashes_np
+from nimble_tpu_torch.index.hashing import bucket_hashes_np, mix32
 from nimble_tpu_torch.observability import runlog
 
 MONO_SLOTS = 4
@@ -169,6 +173,20 @@ def _occupied_entries(index: KmerIndex):
     return hi, lo, vs, vd
 
 
+def _bucket_sizes(n: int, entry_words: int) -> list:
+    """The bucket counts the grow-until-tight single-hash placement tries
+    for n keys with rows of MONO_SLOTS entries of entry_words int32 words:
+    next_pow2(n) * 2^extra for extra = 1..6, while the table fits
+    MONO_MAX_BYTES."""
+    sizes = []
+    for extra in (1, 2, 3, 4, 5, 6):
+        nb2 = 1 << max(1, int(np.ceil(np.log2(n))) + extra)
+        if nb2 * MONO_SLOTS * entry_words * 4 > MONO_MAX_BYTES:
+            break
+        sizes.append(nb2)
+    return sizes
+
+
 def _single_hash_placement(hi: np.ndarray, lo: np.ndarray, entry_words: int):
     """engine.py:_single_hash_placement — grow-until-tight single-hash
     placement into buckets of MONO_SLOTS slots. Returns None (infeasible
@@ -176,10 +194,7 @@ def _single_hash_placement(hi: np.ndarray, lo: np.ndarray, entry_words: int):
     placed_keys, stash_keys)."""
     n = hi.shape[0]
     best = None
-    for extra in (1, 2, 3, 4, 5, 6):
-        nb2 = 1 << max(1, int(np.ceil(np.log2(n))) + extra)
-        if nb2 * MONO_SLOTS * entry_words * 4 > MONO_MAX_BYTES:
-            break
+    for nb2 in _bucket_sizes(n, entry_words):
         h, _ = bucket_hashes_np(hi, lo, nb2)
         order = np.argsort(h, kind="stable")
         h_sorted = h[order]
@@ -418,59 +433,102 @@ def build_monocls_tables(index: KmerIndex) -> Optional[Dict[str, np.ndarray]]:
     return {"mcls_bucket": table, **{f"mcls_stash_{k}": v for k, v in ms.items()}}
 
 
-def build_groupcls_tables(index: KmerIndex) -> Optional[Dict[str, np.ndarray]]:
-    """engine.py:_build_groupcls_tables as numpy arrays: single-hash
-    buckets over the canonical (k+g-1)-mer entries with the g windows'
-    class ids of both orientations as payload and the packed 4 x g-bit
-    presence mask (the narrow group table's), rows [hi x S | lo x S | cls
-    cols (2g, S) | mask x S]. None when the index has no group entries,
-    g > 8, or placement blows its budget."""
+def groupcls_entries(index: KmerIndex) -> Optional[Dict[str, np.ndarray]]:
+    """The groupcls build's host input, views of the index's arrays: the
+    canonical (k+g-1)-mer entries' key words as int32 bit patterns
+    (`groupcls_hi`, `groupcls_lo`) and the g windows' class ids of both
+    orientations (`groupcls_vals`, (n, 2g) int32, -1 where absent). None
+    when the index has no group entries, g > 8, or no bucket size fits
+    MONO_MAX_BYTES."""
     g = index.pair_g
-    hi = index.pair_hi
-    lo = index.pair_lo
-    vals = index.pair_vals
-    if hi is None or hi.shape[0] == 0 or g > 8:
+    if not index.has_pairs or g > 8 or not _bucket_sizes(index.pair_hi.shape[0], 2 + 2 * g + 1):
         return None
+    return {"groupcls_hi": index.pair_hi.view(np.int32), "groupcls_lo": index.pair_lo.view(np.int32),
+            "groupcls_vals": index.pair_vals}
+
+
+def _single_hash_placement_t(hi: torch.Tensor, lo: torch.Tensor, entry_words: int):
+    """_single_hash_placement on int32 key tensors, on their device: the
+    same bucket sizes, h1 masked to each (one hash serves every round), a
+    stable sort, each key's rank in its bucket's run, the first round with
+    at most MONO_TIGHT_STASH overflows, else the one with the fewest. Each
+    round reads its overflow count back to the host. Returns (None or
+    (nb2, bucket_ids, slot_ids, placed_keys, stash_keys), {"buckets",
+    "rounds", "stash"}: the kept round's nb2, the rounds tried, the kept
+    round's overflow count)."""
     n = hi.shape[0]
-    entry = 2 + 2 * g + 1
-    placement = _single_hash_placement(hi, lo, entry)
+    h1 = mix32(lo, hi)
+    pos = torch.arange(n, device=hi.device)
+    info = {"buckets": 0, "rounds": 0, "stash": 0}
+    best = None
+    for nb2 in _bucket_sizes(n, entry_words):
+        info["rounds"] += 1
+        h_sorted, order = torch.sort(h1 & (nb2 - 1), stable=True)
+        boundary = torch.ones(n, dtype=torch.bool, device=hi.device)
+        boundary[1:] = h_sorted[1:] != h_sorted[:-1]
+        rank = pos - torch.where(boundary, pos, 0).cummax(0).values
+        placed = rank < MONO_SLOTS
+        n_over = n - int(placed.sum())
+        if best is None or n_over < best[0]:
+            best = (n_over, nb2, h_sorted, order, rank, placed)
+        if n_over <= MONO_TIGHT_STASH:
+            break
+    if best is None:
+        return None, info
+    n_over, nb2, h_sorted, order, rank, placed = best
+    info.update(buckets=nb2, stash=n_over)
+    if n_over > MONO_MAX_STASH:
+        return None, info
+    return (nb2, h_sorted[placed], rank[placed], order[placed], order[~placed]), info
+
+
+def build_groupcls_tables(entries: Dict[str, torch.Tensor]):
+    """engine.py:_build_groupcls_tables in torch, on the device of the
+    entries (`groupcls_entries`, as tensors): single-hash buckets with the
+    g windows' class ids of both orientations as payload and the packed 4 x
+    g-bit presence mask (the narrow group table's), rows [hi x S | lo x S |
+    cls cols (2g, S) | mask x S], empty slots hi = -1 and class ids -1, and
+    the stash rows in the reference's order, padded to one row that never
+    matches. Returns (the tables under GROUPCLS_KEYS, or None when
+    placement blows its budget; the build's `entries`, `buckets`, `rounds`,
+    `stash` and the tables' `bytes`)."""
+    hi, lo, vals = entries["groupcls_hi"], entries["groupcls_lo"], entries["groupcls_vals"]
+    n, g2 = vals.shape
+    g = g2 // 2
+    entry = 2 + g2 + 1
+    placement, placed_info = _single_hash_placement_t(hi, lo, entry)
+    info = {"entries": n, **placed_info, "bytes": 0}
     if placement is None:
-        return None
+        return None, info
     nb2, b, s, keys, skeys = placement
 
-    present = (vals >= 0).astype(np.int32)
-    vs_mask = np.zeros(n, dtype=np.int32)
-    vd_mask = np.zeros(n, dtype=np.int32)
+    # the mask word, one window at a time (n-sized temporaries only)
+    mask_word = torch.zeros(n, dtype=torch.int64, device=vals.device)
     for i in range(g):
-        vs_mask |= present[:, i] << i
-        vd_mask |= present[:, g + i] << i
-    rev = lambda m: sum(((m >> i) & 1) << (g - 1 - i) for i in range(g))
-    mask_word = vs_mask | (vd_mask << 8) | (rev(vs_mask) << 16) | (rev(vd_mask) << 24)
+        vs, vd = (vals[:, i] >= 0).long(), (vals[:, g + i] >= 0).long()
+        mask_word |= vs << i | vd << (8 + i) | vs << (16 + g - 1 - i) | vd << (24 + g - 1 - i)
+    # one entry's words in the order of the row's planes and the stash's
+    rows = lambda k: torch.cat([hi[k, None], lo[k, None], vals[k], mask_word[k, None].int()], dim=1)
+    # an empty slot, and the stash's padding row: a key that never matches,
+    # class ids absent, no window present
+    empty = torch.tensor([-1, 0] + [-1] * g2 + [0], dtype=torch.int32, device=vals.device)
+    stash = rows(skeys) if skeys.shape[0] else empty[None]
+    placed = rows(keys)
+    del mask_word, keys, skeys
 
     S = MONO_SLOTS
-    table = np.zeros((nb2, S * entry), dtype=np.int32)
-    table[:, 0:S] = -1  # EMPTY key sentinel in the hi plane
-    table[:, 2 * S : 2 * S + 2 * g * S] = -1  # class planes default to miss
-    table[b, s] = hi[keys].view(np.int32)
-    table[b, S + s] = lo[keys].view(np.int32)
-    for c in range(2 * g):
-        table[b, 2 * S + c * S + s] = vals[keys, c]
-    table[b, 2 * S + 2 * g * S + s] = mask_word[keys]
-
-    n_stash = skeys.shape[0]
-    pad = max(1, n_stash)
-    gs = {
-        "hi": np.full(pad, -1, dtype=np.int32),  # padding can never match
-        "lo": np.zeros(pad, dtype=np.int32),
-        "cols": np.full((pad, 2 * g), -1, dtype=np.int32),
-        "mask": np.zeros(pad, dtype=np.int32),
+    table = torch.empty((nb2, entry, S), dtype=torch.int32, device=vals.device)
+    table.copy_(empty[None, :, None].expand_as(table))
+    table[b, :, s] = placed
+    tables = {
+        "groupcls_bucket": table.view(nb2, S * entry),
+        "groupcls_stash_hi": stash[:, 0].contiguous(),
+        "groupcls_stash_lo": stash[:, 1].contiguous(),
+        "groupcls_stash_cols": stash[:, 2 : 2 + g2].contiguous(),
+        "groupcls_stash_mask": stash[:, -1].contiguous(),
     }
-    if n_stash:
-        gs["hi"][:n_stash] = hi[skeys].view(np.int32)
-        gs["lo"][:n_stash] = lo[skeys].view(np.int32)
-        gs["cols"][:n_stash] = vals[skeys]
-        gs["mask"][:n_stash] = mask_word[skeys]
-    return {"groupcls_bucket": table, **{f"groupcls_stash_{k}": v for k, v in gs.items()}}
+    info["bytes"] = sum(t.numel() * t.element_size() for t in tables.values())
+    return tables, info
 
 
 def _class_spans(cb: np.ndarray, W: int):
@@ -1059,6 +1117,22 @@ def _class_tables_to_device(np_tables, keys, class_bits: np.ndarray, bandrow: Op
     return out
 
 
+def _groupcls_to_device(entries: Dict[str, np.ndarray], class_bits: np.ndarray, device) -> Optional[Dict[str, torch.Tensor]]:
+    """The groupcls tables on `device`: the entries and `class_bits` copied
+    (`tables.copy`), then the bucket and stash built there from the entries
+    (build_groupcls_tables) as the run log's `tables.place` stage, which
+    carries the build's `bytes`, `entries`, `buckets`, `rounds` and `stash`,
+    frees the entries and ends with the card synchronized. None when the
+    entries do not place."""
+    out = _copy_to_device({**entries, "class_bits": class_bits}, device)
+    with runlog().stage("tables.place", device=str(device)) as end:
+        tables, info = build_groupcls_tables({k: out.pop(k) for k in entries})
+        end.update(info)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+    return None if tables is None else {**tables, "class_bits": out["class_bits"]}
+
+
 def relayout_gband(table: torch.Tensor):
     """Split a (n_rows, 1 + 2 Pw) gband table of [page | band] rows into its
     page vector (n_rows,) and its band rows (n_rows, 2 Pw), new contiguous
@@ -1140,11 +1214,17 @@ def device_tables(index: KmerIndex, device, group_ok: bool = True, inline_ok: bo
     `_device_tables(index, inline_ok=inline_ok, group_ok=group_ok)` chooses
     (`_host_tables`). Their build on the host (or the gband sidecar's load)
     is the run log's `tables.host` stage, with the host arrays' `bytes`;
-    their copy to `device` is `tables.copy`."""
+    their copy to `device` is `tables.copy`. The groupcls table is built on
+    `device` after the copy (`tables.place`); where its entries do not place
+    there, the path is chosen again without the group probe, as the
+    reference falls back from a groupcls table that does not place."""
     with runlog().stage("tables.host") as end:
         arrays, to_device = _host_tables(index, group_ok, inline_ok)
         end["bytes"] = _nbytes(arrays)
-    return to_device(device)
+    tables = to_device(device)
+    if tables is None:
+        return device_tables(index, device, group_ok=False, inline_ok=inline_ok)
+    return tables
 
 
 def _host_tables(index: KmerIndex, group_ok: bool = True, inline_ok: bool = True):
@@ -1155,10 +1235,11 @@ def _host_tables(index: KmerIndex, group_ok: bool = True, inline_ok: bool = True
     bucket. Otherwise (W > 16, or any W without inline_ok, as a
     feature-split mesh asks), when allowed and the index has group entries:
     the gband tables when banding works and they place, else the groupcls
-    table when it places. Otherwise the monocls table when it places, else
-    the two-choice class-id bucket, each with the strict class bands where
-    every class fits one (`build_class_bands`, never at W <= 16), else with
-    `class_bits`."""
+    entries when some bucket size fits (their table is built on the device,
+    which gives None when it does not place). Otherwise the monocls table
+    when it places, else the two-choice class-id bucket, each with the
+    strict class bands where every class fits one (`build_class_bands`,
+    never at W <= 16), else with `class_bits`."""
     W = index.bitset_words
     if inline_ok and W <= INLINE_BITS_MAX_WORDS:
         tables = None
@@ -1174,10 +1255,9 @@ def _host_tables(index: KmerIndex, group_ok: bool = True, inline_ok: bool = True
         gband = groupband_tables(index)
         if gband is not None:
             return gband, partial(_gband_to_device, gband, W)
-        gcls = build_groupcls_tables(index)
-        if gcls is not None:
-            return {**gcls, "class_bits": class_bits}, partial(
-                _class_tables_to_device, gcls, GROUPCLS_KEYS, class_bits, None)
+        entries = groupcls_entries(index)
+        if entries is not None:
+            return {**entries, "class_bits": class_bits}, partial(_groupcls_to_device, entries, class_bits)
     tables, keys = build_monocls_tables(index), MCLS_KEYS
     if tables is None:
         tables, keys = build_classes_tables(index), CLASSES_KEYS

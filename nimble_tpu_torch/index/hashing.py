@@ -1,8 +1,8 @@
 """The bucket hash spec of the two-choice bucketed k-mer table, twice: in
 numpy (host build and host lookups; a copy of nimble_tpu/index/hashing.py's
-numpy half) and on int64 tensors (device lookups). Tests hold both against
-the reference, so the device probe hits exactly the buckets the host builder
-filled.
+numpy half) and on int64 tensors (device lookups, and the groupcls table's
+build on the device). Tests hold both against the reference, so the device
+probe hits exactly the buckets the builders filled.
 
 torch has no usable uint32 arithmetic on the CPU (`>>` on uint32 is not
 implemented), so tensor values travel as int64 in [0, 2^32) and are masked

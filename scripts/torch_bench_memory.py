@@ -10,8 +10,8 @@ run, the warm job, every job of the window) it prints the call, its wall,
 `torch.cuda.memory_allocated()` and `torch.cuda.max_memory_allocated()`
 since the process started. For each job it prints the run log's stage
 walls (`index_build`, `engine_build`, `tables.host`, `tables.copy`,
-`engine.d2h`, ...) and byte counts (`tables.host` and `tables.copy`
-bytes, `align_done`'s `wire_bytes`), where the program writes them. The
+`tables.place`, `engine.d2h`, ...) and byte counts (`tables.host`,
+`tables.copy` and `tables.place` bytes, `align_done`'s `wire_bytes`), where the program writes them. The
 peak after the window against the peak after the first job says whether
 a job's tables outlive it. The last line is the run's result line.
 """
@@ -21,7 +21,7 @@ import os
 import sys
 import time
 
-STAGES = ("index_build", "engine_build", "tables.host", "tables.copy", "engine.submit", "engine.d2h",
+STAGES = ("index_build", "engine_build", "tables.host", "tables.copy", "tables.place", "engine.submit", "engine.d2h",
           "engine.collect", "pipeline.emit", "align")
 
 
@@ -60,6 +60,7 @@ def main() -> int:
         ends = {e["stage"]: e.get("bytes") for e in events if e.get("event") == "stage_end"}
         done = [e for e in events if e.get("event") == "align_done"]
         counts.append({"tables.host": ends.get("tables.host"), "tables.copy": ends.get("tables.copy"),
+                       "tables.place": ends.get("tables.place"),
                        "wire_bytes": done[-1].get("wire_bytes") if done else None,
                        "engine": [(e["path"], e["chunk_size"], e["table_bytes"]) for e in events
                                   if e.get("event") == "engine"]})

@@ -6,7 +6,9 @@ many pages for the gband bands, so the group probe takes groupcls, as the
 full library does on the card. The port's `align --device cpu --probe
 group` against the benchmark's plain reference (`benchmark/reference/`):
 single-end gz FASTQ reads, and 10x pairs in a tagged BAM through `report`,
-with 0 lines differing; the run log's stages of the tables and its wire."""
+with 0 lines differing; the run log's stages of the tables (the groupcls
+table placed on the engine's device after the copy of its entries) and its
+wire."""
 from __future__ import annotations
 
 import contextlib
@@ -14,12 +16,15 @@ import io
 import json
 
 import pytest
+import torch
 
 from benchmark import bgzf, check, gen, spec
 from benchmark.reference import align as ref
 from benchmark.reference import report as ref_report
 from nimble_tpu_torch import observability as obs
 from nimble_tpu_torch.__main__ import main as port_cli
+from nimble_tpu_torch.align import tables as T
+from nimble_tpu_torch.align.pipeline import make_runner
 from tests.test_torch_host_parity import native_in_both
 from tests.test_torch_observability import check_table_stages_and_wire
 
@@ -86,13 +91,36 @@ def test_single_end_takes_groupcls_and_equals_the_reference(cut, single):
     assert check.lines_differing(check.TSV_HEADER + "".join(rows), tsv) == 0
 
 
-def test_single_end_stages_the_class_id_tables_and_counts_the_wire(single):
+def _stage_end(events, stage):
+    return next(e for e in events if e["event"] == "stage_end" and e["stage"] == stage)
+
+
+def test_single_end_stages_the_class_id_tables_and_counts_the_wire(cut, single):
     _, _, events = single
     check_table_stages_and_wire(events, READS, 22)
-    copy = next(e for e in events if e["event"] == "stage_end" and e["stage"] == "tables.copy")
-    host = next(e for e in events if e["event"] == "stage_end" and e["stage"] == "tables.host")
-    # the groupcls bucket and its stash planes, and the index's class_bits
-    assert copy["bytes"] == host["bytes"] > 22 * 4 * 1000
+    copy, host = _stage_end(events, "tables.copy"), _stage_end(events, "tables.host")
+    # the groupcls entries (two key words and 2g class ids each) and the
+    # index's class_bits; the bucket is built on the engine's device
+    index = _index(cut)
+    entries = index.pair_hi.shape[0] * (2 + 2 * index.pair_g) * 4
+    assert copy["bytes"] == host["bytes"] == entries + index.class_bits.nbytes > 22 * 4 * 1000
+
+
+def test_single_end_places_the_groupcls_table_after_its_copy(cut, single):
+    """One `tables.place` stage inside `engine_build`, after `tables.copy`,
+    with the bucket's and the stash's bytes and the build's counts."""
+    _, _, events = single
+    kinds = [(e["event"], e.get("stage")) for e in events]
+    places = [i for i, k in enumerate(kinds) if k == ("stage_end", "tables.place")]
+    assert len(places) == 1
+    assert kinds.index(("stage_end", "tables.copy")) < kinds.index(("stage_start", "tables.place"))
+    assert kinds.index(("stage_start", "engine_build")) < places[0] < kinds.index(("stage_end", "engine_build"))
+    index = _index(cut)
+    place = events[places[0]]
+    tables, info = T.build_groupcls_tables({k: torch.from_numpy(v) for k, v in T.groupcls_entries(index).items()})
+    assert place["bytes"] == sum(t.numel() * 4 for t in tables.values()) > _stage_end(events, "tables.copy")["bytes"]
+    assert {k: place[k] for k in ("entries", "buckets", "rounds", "stash", "bytes")} == info
+    assert place["entries"] == index.pair_hi.shape[0] and place["buckets"] == tables["groupcls_bucket"].shape[0]
 
 
 def test_tenx_pairs_and_report_equal_the_reference(cut):
@@ -115,15 +143,17 @@ def test_tenx_pairs_and_report_equal_the_reference(cut):
     assert want and check.lines_differing(want, counts.read_text()) == 0
 
 
+def _index(cut):
+    """The cut's index, as `align` loads it."""
+    return make_runner(str(cut[0] / "lib.json"), str(cut[0] / "unused.tsv")).index
+
+
 def test_the_cut_refuses_gband_so_the_group_probe_takes_groupcls(cut, single):
     """The classes of three paralogous genes span more pages than the
     robust banding allows: no gband tables, and the groupcls table places."""
-    from nimble_tpu_torch.align import tables as T
-    from nimble_tpu_torch.align.pipeline import make_runner
-
-    root, _, _ = cut
-    index = make_runner(str(root / "lib.json"), str(root / "unused.tsv")).index
+    index = _index(cut)
     assert index.bitset_words == 22 and index.has_pairs
     assert T.build_class_bands_robust(index) is None
     assert T.groupband_tables(index) is None
-    assert T.build_groupcls_tables(index) is not None
+    entries = {k: torch.from_numpy(v) for k, v in T.groupcls_entries(index).items()}
+    assert T.build_groupcls_tables(entries)[0] is not None

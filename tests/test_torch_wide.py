@@ -99,17 +99,19 @@ def _path(libs, monkeypatch, name):
 
 @pytest.mark.parametrize("name", list(PATHS))
 def test_wide_tables_equal_reference(libs, monkeypatch, name):
-    """The port's host builders equal the reference's element for element,
-    and the port ships exactly the arrays its step reads, equal to the
-    reference's: class_bits without bands, the re-laid band rows and W with
-    them, never the two-choice bucket beside a single-hash table."""
+    """The port's builders (groupcls's on the CPU device) equal the
+    reference's element for element, and the port ships exactly the arrays
+    its step reads, equal to the reference's: class_bits without bands, the
+    re-laid band rows and W with them, never the two-choice bucket beside a
+    single-hash table."""
     ref, port, _, _, group_ok, ref_np, tables = _path(libs, monkeypatch, name)
     _same_tables(tables, ref_np)
     W = ref.bitset_words
     assert TT.table_words(tables) == W
     if "groupcls_bucket" in tables:
-        got, want = TT.build_groupcls_tables(port), E._build_groupcls_tables(ref)
-        keys = TT.GROUPCLS_KEYS
+        entries = {k: torch.from_numpy(v) for k, v in TT.groupcls_entries(port).items()}
+        got = {k: v.numpy() for k, v in TT.build_groupcls_tables(entries)[0].items()}
+        want, keys = E._build_groupcls_tables(ref), TT.GROUPCLS_KEYS
     elif "mcls_bucket" in tables:
         got, want = TT.build_monocls_tables(port), E._build_monocls_tables(ref)
         keys = TT.MCLS_KEYS
