@@ -2532,9 +2532,9 @@ def phase_mesh(work: str, lib: str, fq: str, bam: str, pout: str, se_wall: float
     memo = {}
     build_monocls = TT.build_monocls_tables
 
-    def monocls_once(ix):
+    def monocls_once(ix, info=None):
         if id(ix.table_hi) not in memo:
-            memo[id(ix.table_hi)] = build_monocls(ix)
+            memo[id(ix.table_hi)] = build_monocls(ix, info)
         return memo[id(ix.table_hi)]
 
     TT.build_monocls_tables = monocls_once

@@ -394,13 +394,18 @@ def build_classes_tables(index: KmerIndex) -> Dict[str, np.ndarray]:
     }
 
 
-def build_monocls_tables(index: KmerIndex) -> Optional[Dict[str, np.ndarray]]:
+def build_monocls_tables(index: KmerIndex, info: Optional[dict] = None) -> Optional[Dict[str, np.ndarray]]:
     """engine.py:_build_monocls_tables as numpy arrays: every occupied
     two-choice entry reinserted by h1 into single-hash buckets of
     MONO_SLOTS slots, with class ids as payload, planar rows [hi x S | lo x
     S | vs x S | vd x S] (one 64-byte row a window). None when the index is
-    empty or placement blows its budget."""
+    empty or placement blows its budget. A given `info` dict receives the
+    build's `keys` (the occupied entries), `buckets`, `stash` (the keys in
+    the stash rows, which lookup_monocls sweeps one by one, padded to one)
+    and the tables' `bytes`, 0 where there is no such table."""
+    info = {} if info is None else info
     hi, lo, vs, vd = _occupied_entries(index)
+    info.update(keys=int(hi.shape[0]), buckets=0, stash=0, bytes=0)
     if hi.shape[0] == 0:
         return None
     placement = _single_hash_placement(hi, lo, 4)
@@ -430,7 +435,9 @@ def build_monocls_tables(index: KmerIndex) -> Optional[Dict[str, np.ndarray]]:
         ms["lo"][:n_stash] = lo[skeys].view(np.int32)
         ms["vs"][:n_stash] = vs[skeys]
         ms["vd"][:n_stash] = vd[skeys]
-    return {"mcls_bucket": table, **{f"mcls_stash_{k}": v for k, v in ms.items()}}
+    out = {"mcls_bucket": table, **{f"mcls_stash_{k}": v for k, v in ms.items()}}
+    info.update(buckets=int(nb2), stash=int(n_stash), bytes=_nbytes(out))
+    return out
 
 
 def groupcls_entries(index: KmerIndex) -> Optional[Dict[str, np.ndarray]]:
@@ -1213,7 +1220,8 @@ def device_tables(index: KmerIndex, device, group_ok: bool = True, inline_ok: bo
     """The tables of one path on `device`, chosen as the reference's
     `_device_tables(index, inline_ok=inline_ok, group_ok=group_ok)` chooses
     (`_host_tables`). Their build on the host (or the gband sidecar's load)
-    is the run log's `tables.host` stage, with the host arrays' `bytes`;
+    is the run log's `tables.host` stage, with the host arrays' `bytes`
+    (on monocls the `tables.monocls` stage inside it);
     their copy to `device` is `tables.copy`. The groupcls table is built on
     `device` after the copy (`tables.place`); where its entries do not place
     there, the path is chosen again without the group probe, as the
@@ -1237,9 +1245,11 @@ def _host_tables(index: KmerIndex, group_ok: bool = True, inline_ok: bool = True
     the gband tables when banding works and they place, else the groupcls
     entries when some bucket size fits (their table is built on the device,
     which gives None when it does not place). Otherwise the monocls table
-    when it places, else the two-choice class-id bucket, each with the
-    strict class bands where every class fits one (`build_class_bands`,
-    never at W <= 16), else with `class_bits`."""
+    when it places (its build the run log's `tables.monocls` stage, with
+    the build's `keys`, `buckets`, `stash` and `bytes`), else the
+    two-choice class-id bucket, each with the strict class bands where
+    every class fits one (`build_class_bands`, never at W <= 16), else
+    with `class_bits`."""
     W = index.bitset_words
     if inline_ok and W <= INLINE_BITS_MAX_WORDS:
         tables = None
@@ -1258,7 +1268,8 @@ def _host_tables(index: KmerIndex, group_ok: bool = True, inline_ok: bool = True
         entries = groupcls_entries(index)
         if entries is not None:
             return {**entries, "class_bits": class_bits}, partial(_groupcls_to_device, entries, class_bits)
-    tables, keys = build_monocls_tables(index), MCLS_KEYS
+    with runlog().stage("tables.monocls") as end:
+        tables, keys = build_monocls_tables(index, end), MCLS_KEYS
     if tables is None:
         tables, keys = build_classes_tables(index), CLASSES_KEYS
     bands = build_class_bands(index)
